@@ -1,0 +1,264 @@
+"""HRegNet model layers in PyTorch, channels-last (port of
+`pcd_reg_hregnet_tpu/models/layers.py`).
+
+Submodules carry the flax auto-names (`Dense_0`, `BatchNorm_0`,
+`ConvBNReLU_0`, ...) so `utils.convert.from_flax` maps a flax variable tree
+onto `state_dict` keys mechanically.  Tensors are [B, N, C] / [B, M, k, C];
+the 1x1 convolutions of the reference are `nn.Linear` on the last axis.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.neighbors import knn, knn_gather, knn_group
+from ..ops.procrustes import weighted_kabsch
+from ..ops.sampling import fps, gather_points, weighted_fps
+
+
+def _safe_dist(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis, finite gradient at 0."""
+    return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True) + 1e-12)
+
+
+def _cosine_similarity_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cosine-similarity map [B, Na, Nb] from [B, Na, C], [B, Nb, C]."""
+    inner = torch.bmm(a, b.transpose(1, 2))
+    na = torch.sqrt(torch.sum(a * a, dim=-1) + 1e-12)
+    nb = torch.sqrt(torch.sum(b * b, dim=-1) + 1e-12)
+    return inner / (na[:, :, None] * nb[:, None, :] + 1e-6)
+
+
+class BatchNorm(nn.Module):
+    """Channels-last BatchNorm over every axis but the last.
+
+    `momentum` is torch's (flax momentum 0.9 is torch 0.1, 0.99 is 0.01).
+    Parameters map from flax as scale -> weight, bias -> bias, mean ->
+    running_mean, var -> running_var.
+    """
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer('running_mean', torch.zeros(channels))
+        self.register_buffer('running_var', torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.batch_norm(x.reshape(-1, x.shape[-1]), self.running_mean,
+                         self.running_var, self.weight, self.bias,
+                         self.training, self.momentum, self.eps)
+        return y.reshape(x.shape)
+
+
+class ConvBNReLU(nn.Module):
+    """Stack of (pointwise Dense -> BatchNorm -> ReLU)."""
+
+    def __init__(self, in_features: int, features: Sequence[int]):
+        super().__init__()
+        self.depth = len(features)
+        for j, f in enumerate(features):
+            self.add_module(f'Dense_{j}', nn.Linear(in_features, f, bias=False))
+            self.add_module(f'BatchNorm_{j}', BatchNorm(f))
+            in_features = f
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for j in range(self.depth):
+            x = getattr(self, f'Dense_{j}')(x)
+            x = F.relu(getattr(self, f'BatchNorm_{j}')(x))
+        return x
+
+
+class MLPHead(nn.Module):
+    """(Dense+BN+ReLU) per hidden width, then a final biased Dense."""
+
+    def __init__(self, in_features: int, hidden: Sequence[int], out: int):
+        super().__init__()
+        self.depth = len(hidden)
+        for j, f in enumerate(hidden):
+            self.add_module(f'Dense_{j}', nn.Linear(in_features, f))
+            self.add_module(f'BatchNorm_{j}', BatchNorm(f))
+            in_features = f
+        self.add_module(f'Dense_{self.depth}', nn.Linear(in_features, out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for j in range(self.depth):
+            x = getattr(self, f'Dense_{j}')(x)
+            x = F.relu(getattr(self, f'BatchNorm_{j}')(x))
+        return getattr(self, f'Dense_{self.depth}')(x)
+
+
+class KeypointDetector(nn.Module):
+    """Attentive keypoint detection on (W)FPS-sampled neighbourhoods.
+
+    `in_channels` is the width of the input features (0 at the first level).
+    Returns (keypoints [B, M, 3], sigmas [B, M], attentive_feature
+    [B, M, C_o], grouped_features [B, M, k, C+4], attentive_map
+    [B, M, k, C_o]).
+    """
+
+    def __init__(self, in_channels: int, nsample: int, k: int,
+                 out_channels: Sequence[int], use_fps: bool = True):
+        super().__init__()
+        self.nsample, self.k, self.use_fps = nsample, k, use_fps
+        c_o = out_channels[-1]
+        self.ConvBNReLU_0 = ConvBNReLU(in_channels + 4, out_channels)
+        self.MLPHead_0 = MLPHead(c_o, (c_o, c_o), 1)
+
+    def forward(self, xyz, features=None, weights=None):
+        if xyz.shape[1] < self.nsample:
+            raise ValueError(
+                f'KeypointDetector(nsample={self.nsample}) needs at least '
+                f'{self.nsample} input points, got {xyz.shape[1]}')
+        if self.use_fps:
+            if weights is None:
+                idx = fps(xyz, self.nsample)
+            else:
+                idx = weighted_fps(xyz, weights, self.nsample)
+            sampled_xyz = gather_points(xyz, idx)
+        else:
+            stride = xyz.shape[1] // self.nsample
+            sampled_xyz = xyz[:, ::stride][:, :self.nsample]
+
+        grouped, knn_xyz = knn_group(sampled_xyz, xyz, features, self.k)
+        embedding = self.ConvBNReLU_0(grouped)
+        attn = torch.softmax(torch.amax(embedding, dim=-1), dim=-1)    # [B,M,k]
+        keypoints = torch.sum(attn[..., None] * knn_xyz, dim=2)
+        attentive_map = embedding * attn[..., None]
+        attentive_feature = torch.sum(attentive_map, dim=2)
+        sigmas = F.softplus(self.MLPHead_0(attentive_feature))[..., 0] + 0.001
+        return keypoints, sigmas, attentive_feature, grouped, attentive_map
+
+
+class CoarseReg(nn.Module):
+    """Coarse correspondence via descriptor-space kNN + similarity features.
+
+    The model_v1 MI outputs (`mi_outputs`) are not ported yet.
+    """
+
+    def __init__(self, k: int, in_channels: int, use_sim: bool = True,
+                 use_neighbor: bool = True, return_dists: bool = False):
+        super().__init__()
+        self.k, self.use_sim, self.use_neighbor = k, use_sim, use_neighbor
+        self.return_dists = return_dists
+        C = in_channels
+        n = 0
+        if use_neighbor:
+            self.ConvBNReLU_0 = ConvBNReLU(C + 4, (C,) * 3)
+            n = 1
+        feat_in = 10 + 2 * C + 2 + 2 * use_sim + 2 * use_neighbor
+        self.add_module(f'ConvBNReLU_{n}', ConvBNReLU(feat_in, (2 * C,) * 3))
+        self._feat_convs = f'ConvBNReLU_{n}'
+        self.MLPHead_0 = MLPHead(2 * C, (2 * C,) * 2, 1)
+
+    def _nbr_desc(self, xyz, desc):
+        _, nbr_idx = knn(xyz, xyz, self.k)
+        ng = knn_gather(torch.cat([xyz, desc], -1), nbr_idx)
+        nbr_xyz, nbr_feats = ng[..., :3], ng[..., 3:]
+        rela = nbr_xyz - xyz[:, :, None, :]
+        x = torch.cat([nbr_feats, rela, _safe_dist(rela)], dim=-1)
+        w = torch.softmax(torch.amax(self.ConvBNReLU_0(x), dim=-1), dim=-1)
+        return torch.sum(nbr_feats * w[..., None], dim=2)
+
+    def forward(self, src_xyz, src_desc, dst_xyz, dst_desc,
+                src_weights, dst_weights):
+        B, N, C = src_desc.shape
+        k = self.k
+        _, knn_idx = knn(src_desc, dst_desc, k)
+        g = knn_gather(torch.cat([dst_xyz, dst_desc, dst_weights[..., None]], -1),
+                       knn_idx)
+        src_knn_xyz, src_knn_desc, src_knn_w = g[..., :3], g[..., 3:3 + C], g[..., 3 + C:]
+
+        src_xyz_expand = src_xyz[:, :, None, :].expand(B, N, k, 3)
+        src_desc_expand = src_desc[:, :, None, :].expand(B, N, k, C)
+        src_rela_xyz = src_knn_xyz - src_xyz_expand
+        src_rela_dist = _safe_dist(src_rela_xyz)
+        src_w_expand = src_weights[:, :, None, None].expand(B, N, k, 1)
+
+        sim_parts = []
+        feats_dist = None
+        if self.use_sim:
+            cos = _cosine_similarity_matrix(src_desc, dst_desc)
+            src_dst_norm = cos / (torch.amax(cos, dim=2, keepdim=True) + 1e-6)
+            dst_src_norm = cos / (torch.amax(cos, dim=1, keepdim=True) + 1e-6)
+            src_dst_cos = torch.gather(src_dst_norm, 2, knn_idx)
+            dst_src_cos = torch.gather(dst_src_norm, 2, knn_idx)
+            sim_parts += [src_dst_cos[..., None], dst_src_cos[..., None]]
+            feats_dist = 1.0 - dst_src_cos
+
+        if self.use_neighbor:
+            src_nbr = self._nbr_desc(src_xyz, src_desc)
+            dst_nbr = self._nbr_desc(dst_xyz, dst_desc)
+            ncos = _cosine_similarity_matrix(src_nbr, dst_nbr)
+            src_dst_nnorm = ncos / (torch.amax(ncos, dim=2, keepdim=True) + 1e-6)
+            dst_src_nnorm = ncos / (torch.amax(ncos, dim=1, keepdim=True) + 1e-6)
+            sim_parts += [torch.gather(src_dst_nnorm, 2, knn_idx)[..., None],
+                          torch.gather(dst_src_nnorm, 2, knn_idx)[..., None]]
+
+        geom = [src_rela_xyz, src_rela_dist, src_xyz_expand, src_knn_xyz]
+        desc = [src_desc_expand, src_knn_desc, src_w_expand, src_knn_w]
+        feats = torch.cat(geom + desc + sim_parts, dim=-1)
+
+        feats = getattr(self, self._feat_convs)(feats)
+        attn = torch.softmax(torch.amax(feats, dim=-1), dim=-1)
+        corres_xyz = torch.sum(attn[..., None] * src_knn_xyz, dim=2)
+        attentive_feats = torch.sum(attn[..., None] * feats, dim=2)
+        weights = torch.sigmoid(self.MLPHead_0(attentive_feats)[..., 0])
+
+        if self.return_dists:
+            return corres_xyz, weights, src_rela_dist[..., 0], feats_dist
+        return corres_xyz, weights
+
+
+class FineReg(nn.Module):
+    """Fine correspondence via xyz-space kNN; `mi_outputs` adds the MI
+    projection and batch-rolled negatives (FineReg2)."""
+
+    def __init__(self, k: int, in_channels: int, mi_outputs: bool = False):
+        super().__init__()
+        self.k, self.mi_outputs = k, mi_outputs
+        C = in_channels
+        self.ConvBNReLU_0 = ConvBNReLU(2 * C + 12, (2 * C,) * 3)
+        self.MLPHead_0 = MLPHead(2 * C, (2 * C,) * 2, 1)
+        if mi_outputs:
+            self.ConvBNReLU_1 = ConvBNReLU(2 * C, (C,))
+
+    def forward(self, src_xyz, src_feat, dst_xyz, dst_feat,
+                src_weights, dst_weights):
+        B, N, C = src_feat.shape
+        k = self.k
+        _, knn_idx = knn(src_xyz, dst_xyz, k)
+        g = knn_gather(torch.cat([dst_xyz, dst_feat, dst_weights[..., None]], -1),
+                       knn_idx)
+        src_knn_xyz, src_knn_feat, src_knn_w = g[..., :3], g[..., 3:3 + C], g[..., 3 + C:]
+        src_xyz_expand = src_xyz[:, :, None, :].expand(B, N, k, 3)
+        src_feat_expand = src_feat[:, :, None, :].expand(B, N, k, C)
+        rela = src_knn_xyz - src_xyz_expand
+        src_w_expand = src_weights[:, :, None, None].expand(B, N, k, 1)
+
+        feats = torch.cat([rela, _safe_dist(rela), src_xyz_expand, src_knn_xyz,
+                           src_feat_expand, src_knn_feat,
+                           src_w_expand, src_knn_w], dim=-1)
+        feats = self.ConvBNReLU_0(feats)
+        attn = torch.softmax(torch.amax(feats, dim=-1), dim=-1)
+        corres_xyz = torch.sum(attn[..., None] * src_knn_xyz, dim=2)
+        attentive_feats = torch.sum(attn[..., None] * feats, dim=2)
+        weights = torch.sigmoid(self.MLPHead_0(attentive_feats)[..., 0])
+
+        if not self.mi_outputs:
+            return corres_xyz, weights
+        mi_feats = self.ConvBNReLU_1(attentive_feats)
+        return (corres_xyz, weights, torch.roll(weights, 1, dims=0),
+                mi_feats, torch.roll(mi_feats, 1, dims=0))
+
+
+class SVDHead(nn.Module):
+    """Parameter-free weighted-Kabsch pose head."""
+
+    def forward(self, src, src_corres, weights):
+        return weighted_kabsch(src, src_corres, weights)
