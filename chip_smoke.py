@@ -13,7 +13,9 @@ Phases, each printing its own line with seconds:
 3. kernels: each kernel against its plain PyTorch version on the card at
    every shape the serving forward gives it (FPS/WFPS indices identical,
    patch attention within 1e-5 in f32 and 2e-2 in bf16), with kernel,
-   plain and library times;
+   plain and library times, and for FPS/WFPS the latency floor of their
+   M-1 sequential steps, measured with a probe kernel that runs only the
+   block-wide argmax of each step;
 4. serve: `model_v6` at full width (8096-point clouds, 1024/512/256
    keypoints, PTv3 depths (2,2,2)) with seeded random weights registers two
    raw pairs through `serve.infer_pair` and one B=8 batch through
@@ -57,6 +59,7 @@ ATTN_TOL = {'float32': 1e-5, 'bfloat16': 2e-2}
 # keypoint when sigmas differ in the last bits between the two devices
 POSE_TOL_R = 1e-3
 POSE_TOL_T = 1e-2   # metres
+SERVE_REPS = 20     # timed forwards per batch size
 
 
 def log(phase: str, t0: float, msg: str) -> None:
@@ -111,7 +114,19 @@ def make_clouds(rng: np.random.Generator, n: int):
     return src.astype(np.float32), dst
 
 
-def check_fps(torch, kfps, gen, t0) -> list[dict]:
+def argmax_steps_ms(torch, lib, b: int, m: int) -> float:
+    """Device ms of m-1 block-wide argmax steps on b rows (the probe in
+    csrc/fps.cu): the latency floor of an FPS call of this design."""
+    out = torch.empty((b, m), dtype=torch.int32, device='cuda')
+
+    def call():
+        lib.check(lib.lib.pcdreg_argmax_steps(
+            out.data_ptr(), b, m, torch.cuda.current_stream().cuda_stream),
+            'pcdreg_argmax_steps')
+    return cuda_ms(torch, call, 10)
+
+
+def check_fps(torch, kfps, lib, gen, t0) -> list[dict]:
     """K1 at B in {1, 8} x 8096 -> 1024; K2 at 1024 -> 512 and 512 -> 256."""
     entries = []
     for name, shapes, weighted, wrapper, src in (
@@ -120,6 +135,7 @@ def check_fps(torch, kfps, gen, t0) -> list[dict]:
             ('weighted_fps', WFPS_SHAPES, True, kfps.weighted_farthest_point_sample,
              'pcd_reg_hregnet_tpu/ops/pallas/fps.py:36')):
         tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0}
+        floor_fwd = 0.0
         by = {'bytes': 0.0, 'operations': 0.0}   # which term the bound sums
         max_err = 0
         for B in (1, BATCH):
@@ -144,16 +160,22 @@ def check_fps(torch, kfps, gen, t0) -> list[dict]:
                 nbytes = (B * n * 3 * 4 + (B * n * 4 if weighted else 0) + B * m * 4)
                 flops = B * (m - 1) * n * (10 if weighted else 9)
                 b_bytes, b_ops = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOPS_S * 1e3
+                floor_ms = argmax_steps_ms(torch, lib, B, m)
                 log('kernels', t0, f'{name} B={B} N={n}->M={m}: indices identical; '
-                    f'kernel {ms:.3f} ms, plain {plain_ms:.2f} ms, '
-                    f'bound {max(b_bytes, b_ops) * 1e3:.3f} us '
-                    f'(bytes {b_bytes * 1e3:.3f} us, ops {b_ops * 1e3:.3f} us)')
+                    f'kernel {ms:.3f} ms ({ms / (m - 1) * 1e3:.3f} us/step), '
+                    f'plain {plain_ms:.2f} ms, roofline bound '
+                    f'{max(b_bytes, b_ops) * 1e3:.3f} us (bytes {b_bytes * 1e3:.3f} us, '
+                    f'ops {b_ops * 1e3:.3f} us), latency floor {floor_ms:.3f} ms '
+                    f'({floor_ms / (m - 1) * 1e3:.3f} us/step, {m - 1} argmax steps)')
                 if B == BATCH:   # per-forward totals: one launch per tower
                     tot['ms'] += TOWERS * ms
                     tot['plain_ms'] += TOWERS * plain_ms
                     tot['bound_ms'] += TOWERS * max(b_bytes, b_ops)
+                    floor_fwd += TOWERS * floor_ms
                     by['bytes' if b_bytes >= b_ops else 'operations'] += max(b_bytes, b_ops)
                 max_err = max(max_err, err)
+        log('kernels', t0, f'{name} per B={BATCH} forward: kernel {tot["ms"]:.3f} ms, '
+            f'latency floor {floor_fwd:.3f} ms, roofline bound {tot["bound_ms"]:.5f} ms')
         entries.append({'name': name, 'route': 'cuda',
                         'source': 'pcd_reg_hregnet_torch/csrc/fps.cu',
                         'replaces': src, 'max_abs_err': max_err,
@@ -269,20 +291,25 @@ def serve_phase(torch, t0) -> dict:
 
     # --- throughput ---------------------------------------------------------
     def timed(src, dst, reps):
+        """min, median and max ms of `reps` forwards, each ending in a sync."""
         serve.register(model, src, dst, device='cuda')
         torch.cuda.synchronize()
-        t = time.perf_counter()
+        times = []
         for _ in range(reps):
+            t = time.perf_counter()
             serve.register(model, src, dst, device='cuda')
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) / reps * 1e3
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return min(times), float(np.median(times)), max(times)
 
     src8_d = torch.from_numpy(src8).cuda()
     dst8_d = torch.from_numpy(dst8).cuda()
-    ms8 = timed(src8_d, dst8_d, 5)
-    ms1 = timed(src8_d[:1].contiguous(), dst8_d[:1].contiguous(), 5)
-    log('serve', t0, f'forward B={BATCH}: {ms8:.1f} ms ({BATCH / ms8 * 1e3:.1f} pairs/s); '
-        f'B=1: {ms1:.1f} ms ({1e3 / ms1:.1f} pairs/s)')
+    for b, (src, dst) in ((BATCH, (src8_d, dst8_d)),
+                          (1, (src8_d[:1].contiguous(), dst8_d[:1].contiguous()))):
+        lo, med, hi = timed(src, dst, SERVE_REPS)
+        log('serve', t0, f'forward B={b}: median {med:.1f} ms ({b / med * 1e3:.1f} pairs/s), '
+            f'min {lo:.1f}, max {hi:.1f} over {SERVE_REPS} forwards after one warm-up '
+            f'(host clock; indicative only)')
 
     # --- the card against the port's CPU forward, B=1 ----------------------
     prep = []
@@ -324,12 +351,11 @@ def main() -> int:
         print('chip_smoke: torch.cuda.is_available() is False; nothing to check',
               file=sys.stderr)
         return 1
-    from pcd_reg_hregnet_torch.core.device import set_fp32_numerics
+    from pcd_reg_hregnet_torch.core.device import fp32_numerics
     from pcd_reg_hregnet_torch.ops.kernels import attention as kattn
     from pcd_reg_hregnet_torch.ops.kernels import build as kbuild
     from pcd_reg_hregnet_torch.ops.kernels import fps as kfps
 
-    set_fp32_numerics()
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     log('device', t0, f'{kind}; nvidia-smi: {smi}; torch {torch.__version__} '
@@ -342,8 +368,9 @@ def main() -> int:
         print(f'  ptxas {line}')
 
     gen = torch.Generator().manual_seed(0)
-    entries = check_fps(torch, kfps, gen, t0)
-    entries.append(check_attention(torch, kattn, gen, t0))
+    with fp32_numerics():   # the plain versions in full f32, as in the model's forward
+        entries = check_fps(torch, kfps, lib, gen, t0)
+        entries.append(check_attention(torch, kattn, gen, t0))
 
     launches = serve_phase(torch, t0)
     for e in entries:

@@ -1,6 +1,8 @@
 """Device resolution for the port's entry points."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -18,11 +20,19 @@ def resolve_device(device: str | torch.device = 'cuda') -> torch.device:
     return dev
 
 
-def set_fp32_numerics() -> None:
-    """Full-f32 matmuls and convolutions: no TF32 anywhere on the path.
+@contextlib.contextmanager
+def fp32_numerics():
+    """Full-f32 matmuls and convolutions inside the block: no TF32.
 
     cuDNN defaults to TF32 for f32 convolutions (the PTv3 depthwise conv);
-    geometry (kNN distances, Kabsch, SE(3)) must stay full f32.
+    geometry (kNN distances, Kabsch, SE(3)) must stay full f32.  The
+    model's forward runs under this; the caller's settings come back on
+    exit, so nothing else in the process is changed.
     """
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev

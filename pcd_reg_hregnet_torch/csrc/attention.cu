@@ -16,21 +16,24 @@
 // Design (simple first): one block per (patch, head, tile of 64 query
 // rows).  The block stages the whole K and V of its (patch, head) in
 // shared memory as f32 (2*K*d*4 bytes, 64 KB at the production K*d = 8192,
-// above the 48 KB default, so the launch opts in).  G = d/DPT threads
-// share one query row, each owning DPT <= 16 dims (interleaved, so the G
-// threads hit distinct banks), which keeps q and the accumulator in
-// registers at every d from 8 to 128.  Keys stream through in chunks of 16
-// with an online softmax: one rescale per chunk.
+// above the 48 KB default, so the kernel opts in, once per device).
+// G = d/DPT threads share one query row, each owning DPT <= 16 dims
+// (interleaved, so the G threads hit distinct banks), which keeps q and the
+// accumulator in registers at every d from 8 to 128.  Keys stream through
+// in chunks of 16 with an online softmax: one rescale per chunk.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
 constexpr int kRowsPerBlock = 64;
 constexpr int kChunk = 16;
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block may opt in to
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -112,6 +115,23 @@ __global__ void attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Lift attn_kernel<T, D>'s dynamic shared memory cap to the most a block
+// may opt in to, once per device: later launches make no host API call
+// for it.  Setting it twice from racing threads is harmless.
+template <typename T, int D>
+cudaError_t opt_in_smem() {
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  e = cudaFuncSetAttribute(attn_kernel<T, D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  if (e == cudaSuccess) done[dev].store(true, std::memory_order_release);
+  return e;
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int rh, int K, float scale, cudaStream_t stream) {
@@ -119,8 +139,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const size_t smem = 2 * (size_t)K * D * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e = opt_in_smem<T, D>();
     if (e != cudaSuccess) return e;
   }
   const dim3 grid(rh, (K + kRowsPerBlock - 1) / kRowsPerBlock);

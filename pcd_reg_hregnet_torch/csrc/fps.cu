@@ -13,7 +13,8 @@
 // strictly sequential and each ends in a block-wide argmax, so the kernel
 // is bound by M-1 rounds of (distance update + reduction + two barriers),
 // not by bytes (the cloud is read once) or by FLOPs (~10 per point-step).
-// At B=1 only one SM works.
+// At B=1 only one SM works.  argmax_steps_kernel below runs the reduction
+// and barriers alone, so its time is this design's latency floor.
 //
 // Design: one block of 1024 threads per batch row.  Each thread keeps its
 // PPT points (strided: point j lives in thread j % 1024), their weights and
@@ -38,6 +39,16 @@ __device__ __forceinline__ bool beats(float av, int ai, float bv, int bi) {
   if (isnan(av)) return !isnan(bv) || ai < bi;
   if (isnan(bv)) return false;
   return av > bv || (av == bv && ai < bi);
+}
+
+// Argmax of (bv, bi) across the warp; every lane ends with the winner.
+__device__ __forceinline__ void warp_argmax(float& bv, int& bi) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+    if (beats(ov, oi, bv, bi)) { bv = ov; bi = oi; }
+  }
 }
 
 template <int PPT, bool WEIGHTED>
@@ -87,23 +98,13 @@ fps_kernel(const float* __restrict__ xyz, const float* __restrict__ weights,
         if (beats(temp[i], j, bv, bi)) { bv = temp[i]; bi = j; }
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      if (beats(ov, oi, bv, bi)) { bv = ov; bi = oi; }
-    }
+    warp_argmax(bv, bi);
     if (lane == 0) { s_val[warp] = bv; s_idx[warp] = bi; }
     __syncthreads();
     if (warp == 0) {
       bv = s_val[lane];
       bi = s_idx[lane];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        if (beats(ov, oi, bv, bi)) { bv = ov; bi = oi; }
-      }
+      warp_argmax(bv, bi);
       if (lane == 0) {
         o[s] = bi;
         s_pt[0] = p[3 * bi + 0];
@@ -115,6 +116,41 @@ fps_kernel(const float* __restrict__ xyz, const float* __restrict__ weights,
     lx = s_pt[0];
     ly = s_pt[1];
     lz = s_pt[2];
+  }
+}
+
+// Latency probe, not a path kernel: m-1 steps of exactly fps_kernel's
+// block-wide argmax and broadcast (two shuffle trees, two barriers), with
+// each thread's candidate a cheap function of the last winner in place of
+// the distance update and the selected point's fetch.  Its time over m-1
+// is the floor a step of this one-block-per-row design cannot go below.
+__global__ void __launch_bounds__(kThreads)
+argmax_steps_kernel(int32_t* __restrict__ out, int m) {
+  __shared__ float s_val[kWarps];
+  __shared__ int s_idx[kWarps];
+  __shared__ int s_win;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  int32_t* o = out + (size_t)blockIdx.x * m;
+  if (tid == 0) o[0] = 0;
+  int last = 0;
+
+  for (int s = 1; s < m; ++s) {
+    float bv = (float)((tid * 37 + last) & 1023);
+    int bi = tid;
+    warp_argmax(bv, bi);
+    if (lane == 0) { s_val[warp] = bv; s_idx[warp] = bi; }
+    __syncthreads();
+    if (warp == 0) {
+      bv = s_val[lane];
+      bi = s_idx[lane];
+      warp_argmax(bv, bi);
+      if (lane == 0) { o[s] = bi; s_win = bi; }
+    }
+    __syncthreads();
+    last = s_win;
   }
 }
 
@@ -144,6 +180,14 @@ extern "C" int pcdreg_fps(const void* xyz, const void* weights, void* out,
   int32_t* o = (int32_t*)out;
   if (weights) return (int)launch<true>(x, (const float*)weights, o, b, n, m, s);
   return (int)launch<false>(x, nullptr, o, b, n, m, s);
+}
+
+// Runs the latency probe: b blocks of m-1 argmax steps into out [b, m]
+// int32 on the current device.  Returns the cudaError_t of the launch.
+extern "C" int pcdreg_argmax_steps(void* out, int b, int m, void* stream) {
+  if (b <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+  argmax_steps_kernel<<<b, kThreads, 0, (cudaStream_t)stream>>>((int32_t*)out, m);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* pcdreg_error_string(int err) {

@@ -1,8 +1,8 @@
 """Rigid-transform helpers (port of `pcd_reg_hregnet_tpu/geometry/se3.py`
 `pack`/`unpack`/`apply`/`compose`/`inverse`).
 
-All products are full f32: the callers set TF32 off
-(`core.device.set_fp32_numerics`), the counterpart of the JAX package's
+All products are full f32: the model's forward runs with TF32 off
+(`core.device.fp32_numerics`), the counterpart of the JAX package's
 ``precision='highest'``.
 """
 from __future__ import annotations

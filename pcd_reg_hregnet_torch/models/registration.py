@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from ..core.config import ModelConfig
+from ..core.device import fp32_numerics
 from ..geometry import se3
 from .layers import CoarseReg, FineReg, KeypointDetector, SVDHead
 from .ptv3 import PointTransformerEncoder
@@ -77,6 +78,7 @@ class RegistrationModel(nn.Module):
         self.fine_corres_1 = FineReg(cfg.fine_k, c1)
         self.pose_head = SVDHead()
 
+    @fp32_numerics()
     def forward(self, src_points: torch.Tensor, dst_points: torch.Tensor) -> dict:
         cfg = self.cfg
         src = self.feature_extraction(src_points)

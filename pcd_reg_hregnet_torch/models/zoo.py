@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from ..core.config import ModelConfig
-from ..core.device import resolve_device, set_fp32_numerics
+from ..core.device import resolve_device
 from .registration import RegistrationModel
 
 _PRESETS = {
@@ -53,7 +53,6 @@ def build(name: str, *, device: str | torch.device = 'cuda', seed: int = 0,
     with ``model.load_state_dict(utils.convert.from_flax(variables))``.
     """
     dev = resolve_device(device)
-    set_fp32_numerics()
     model = RegistrationModel(model_config(name, **overrides))
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

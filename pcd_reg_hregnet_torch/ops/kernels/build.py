@@ -69,6 +69,8 @@ class KernelLibrary:
         lib.pcdreg_patch_attention.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
                                                ctypes.c_float, ci, vp]
         lib.pcdreg_patch_attention.restype = ci
+        lib.pcdreg_argmax_steps.argtypes = [vp, ci, ci, vp]
+        lib.pcdreg_argmax_steps.restype = ci
         lib.pcdreg_error_string.argtypes = [ci]
         lib.pcdreg_error_string.restype = ctypes.c_char_p
 

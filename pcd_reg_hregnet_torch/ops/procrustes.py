@@ -1,6 +1,7 @@
 """Weighted Kabsch pose solve (port of `pcd_reg_hregnet_tpu/ops/procrustes.py`).
 
-Full f32 throughout: callers set TF32 off (`core.device.set_fp32_numerics`).
+Full f32 throughout: the model's forward runs with TF32 off
+(`core.device.fp32_numerics`).
 A non-finite covariance selects the identity pose, without a branch.
 """
 from __future__ import annotations

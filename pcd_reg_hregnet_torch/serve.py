@@ -40,16 +40,15 @@ def register(model: torch.nn.Module, src: torch.Tensor | np.ndarray,
 
 def infer_pair(model: torch.nn.Module, src_points: np.ndarray,
                dst_points: np.ndarray, *, device: str | torch.device = 'cuda',
-               max_range: float = 80.0, num_points: int = 8096,
-               seed: int = 0) -> dict:
+               max_range: float = 80.0, num_points: int = 8096) -> dict:
     """Register ONE raw source cloud onto one raw target cloud.
 
     Clouds [n, >=3] of any length are range-filtered to `max_range` and
-    resampled to `num_points` (numpy generator seeded with `seed`, as the
-    JAX runner does with 0).  Returns {'transform': [4, 4], 'rotation':
+    resampled to `num_points` (numpy generator seeded with 0, as in the JAX
+    runner).  Returns {'transform': [4, 4], 'rotation':
     [3, 3], 'translation': [3]} as nested lists of floats.
     """
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(0)
     prep = []
     for pts in (src_points, dst_points):
         pts = np.asarray(pts, np.float32)[..., :3]

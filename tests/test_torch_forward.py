@@ -80,6 +80,24 @@ class TestEntryPoints:
         np.testing.assert_allclose(T[:3, :3], np.asarray(out['rotation']))
         np.testing.assert_allclose(T[3], [0, 0, 0, 1])
 
+    def test_forward_turns_tf32_off_only_inside(self):
+        """The forward runs with TF32 off and leaves the caller's settings."""
+        backends = torch.backends
+        prev = (backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32)
+        seen = []
+        try:
+            backends.cuda.matmul.allow_tf32 = backends.cudnn.allow_tf32 = True
+            tm = zoo.build('model_v6', device='cpu', levels=LEVELS, **SMALL)
+            assert backends.cuda.matmul.allow_tf32 and backends.cudnn.allow_tf32
+            tm.pose_head.register_forward_hook(lambda *_: seen.append(
+                (backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32)))
+            src, dst = _pair(4, 1, 256)
+            serve.register(tm, src, dst, device='cpu')
+            assert seen and all(flags == (False, False) for flags in seen)
+            assert backends.cuda.matmul.allow_tf32 and backends.cudnn.allow_tf32
+        finally:
+            backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32 = prev
+
     def test_unknown_model(self):
         with pytest.raises(KeyError, match='model_v6'):
             zoo.model_config('hregnet_x')
