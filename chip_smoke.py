@@ -8,14 +8,20 @@ Run from the repository root with no arguments:
 Phases, each printing its own line with seconds:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: one nvcc call builds every kernel in `pcd_reg_hregnet_torch/csrc`;
-   prints the build seconds and each kernel's registers, stack and spills;
+2. build: one nvcc per source in `pcd_reg_hregnet_torch/csrc`, all at
+   once, then one link; prints the build seconds and each kernel's
+   registers, stack and spills;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   every shape the serving forward gives it (FPS/WFPS indices identical,
-   patch attention within 1e-5 in f32 and 2e-2 in bf16), with kernel,
-   plain and library times, and for FPS/WFPS the latency floor of their
-   M-1 sequential steps, measured with a probe kernel that runs only the
-   block-wide argmax of each step;
+   every shape the serving forward gives it, with kernel, plain and
+   library times.  FPS/WFPS: the wrapper's configuration table must be the
+   compiled one; every compiled configuration that holds the row must give
+   the plain version's indices on uniform, resample-padded (exact ties),
+   grid-snapped and NaN-bearing rows at B=1 and B=8; each configuration is
+   timed (the sweep behind the chooser), and the chosen one is timed with
+   its latency floor, measured by the kernel's probe (the same steps with
+   no distance update); rows of 2048-65536 points check and time the
+   chooser's other bands.  Patch attention within 1e-5 in f32 and 2e-2 in
+   bf16;
 4. serve: `model_v6` at full width (8096-point clouds, 1024/512/256
    keypoints, PTv3 depths (2,2,2)) with seeded random weights registers two
    raw pairs through `serve.infer_pair` and one B=8 batch through
@@ -49,6 +55,8 @@ N_POINTS = 8096
 BATCH = 8
 FPS_SHAPES = ((N_POINTS, 1024),)                 # K1: (N, M) per tower
 WFPS_SHAPES = ((1024, 512), (512, 256))          # K2: L2, L3 per tower
+FPS_KINDS = ('uniform', 'resampled', 'grid', 'nan')
+TABLE_NS = (2048, 4096, 16384, 32768, 65536)     # the chooser's other bands
 # K3 per tower: (patch K, channels C) per level x heads per stage, R = 4B
 ATTN_LEVELS = ((256, 64), (128, 128), (64, 256))
 ATTN_HEADS = (2, 4, 8)
@@ -114,20 +122,40 @@ def make_clouds(rng: np.random.Generator, n: int):
     return src.astype(np.float32), dst
 
 
-def argmax_steps_ms(torch, lib, b: int, m: int) -> float:
-    """Device ms of m-1 block-wide argmax steps on b rows (the probe in
-    csrc/fps.cu): the latency floor of an FPS call of this design."""
-    out = torch.empty((b, m), dtype=torch.int32, device='cuda')
+def fps_rows(rng: np.random.Generator, kind: str, b: int, n: int) -> np.ndarray:
+    """[b, n, 3] f32 rows of one kind: `uniform` in a 80 m cube; `resampled`,
+    a raw cloud of 3000/8096 n points padded to n by `resample`'s
+    duplication, as `serve.infer_pair` pads (exact distance ties);
+    `grid`, uniform snapped to a 0.5 m grid (ties everywhere); `nan`,
+    uniform with one NaN coordinate in row b // 2."""
+    from pcd_reg_hregnet_torch.data.pipeline import resample
+    xyz = rng.uniform(-40.0, 40.0, (b, n, 3)).astype(np.float32)
+    if kind == 'resampled':
+        raw = max(1, round(n * 3000 / N_POINTS))
+        xyz = np.stack([resample(row[:raw], n, rng)[0] for row in xyz])
+    elif kind == 'grid':
+        xyz = np.round(xyz / 0.5) * np.float32(0.5)
+    elif kind == 'nan':
+        xyz[b // 2, n // 3, 1] = np.nan
+    return np.ascontiguousarray(xyz, dtype=np.float32)
 
-    def call():
-        lib.check(lib.lib.pcdreg_argmax_steps(
-            out.data_ptr(), b, m, torch.cuda.current_stream().cuda_stream),
-            'pcdreg_argmax_steps')
-    return cuda_ms(torch, call, 10)
+
+def fps_weights(rng: np.random.Generator, b: int, n: int) -> np.ndarray:
+    """Weights as the model builds them: 1/(sigma + 1e-5), mean-normalised
+    per row, sigma = softplus(.) + 0.001."""
+    sigma = np.log1p(np.exp(rng.normal(0.0, 2.0, (b, n)))) + 0.001
+    w = 1.0 / (sigma + 1e-5)
+    return (w / w.mean(axis=1, keepdims=True)).astype(np.float32)
 
 
-def check_fps(torch, kfps, lib, gen, t0) -> list[dict]:
-    """K1 at B in {1, 8} x 8096 -> 1024; K2 at 1024 -> 512 and 512 -> 256."""
+def check_fps(torch, kfps, t0) -> list[dict]:
+    """K1 at 8096 -> 1024 and K2 at 1024 -> 512 and 512 -> 256, B in {1, 8}:
+    every compiled configuration that holds the row, on uniform, resampled,
+    grid-snapped and NaN-bearing rows, must give the plain version's
+    indices; then times of the chosen configuration (kernel, plain, bound,
+    latency floor from the probe) and of every configuration (the sweep
+    behind `ops/kernels/fps.py::BANDS`); then one 65536 -> 1024 row."""
+    rng = np.random.default_rng(0)
     entries = []
     for name, shapes, weighted, wrapper, src in (
             ('fps', FPS_SHAPES, False, kfps.farthest_point_sample,
@@ -137,50 +165,98 @@ def check_fps(torch, kfps, lib, gen, t0) -> list[dict]:
         tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0}
         floor_fwd = 0.0
         by = {'bytes': 0.0, 'operations': 0.0}   # which term the bound sums
-        max_err = 0
         for B in (1, BATCH):
             for n, m in shapes:
-                xyz = (torch.rand((B, n, 3), generator=gen) * 80 - 40).cuda()
-                w = None
-                if weighted:
-                    inv = 1.0 / (torch.rand((B, n), generator=gen) * 2 + 0.01)
-                    w = (inv / inv.mean(dim=1, keepdim=True)).cuda()
-                    call = lambda: wrapper(xyz, w, m)   # noqa: E731
-                else:
-                    call = lambda: wrapper(xyz, m)      # noqa: E731
-                got = call()
-                ref = kfps.fps_reference(xyz, w, m)
-                torch.cuda.synchronize()
-                err = int((got.long() - ref.long()).abs().max())
-                if err != 0:
-                    raise AssertionError(f'{name} B={B} {n}->{m}: indices differ '
-                                         f'from the plain version (max |diff| {err})')
+                chosen = kfps.choose_config(n)
+                fits = [c for c in range(len(kfps.CONFIGS)) if kfps.capacity(c) >= n]
+                w = (torch.from_numpy(fps_weights(rng, B, n)).cuda()
+                     if weighted else None)
+                for kind in FPS_KINDS:
+                    xyz = torch.from_numpy(fps_rows(rng, kind, B, n)).cuda()
+                    ref = kfps.fps_reference(xyz, w, m)
+                    outs = {c: kfps._launch(xyz, w, m, c) for c in fits}
+                    outs['wrapper'] = (wrapper(xyz, w, m) if weighted
+                                       else wrapper(xyz, m))
+                    torch.cuda.synchronize()
+                    for c, got in outs.items():
+                        if not torch.equal(got, ref):
+                            bad = int((got != ref).sum())
+                            raise AssertionError(
+                                f'{name} B={B} {n}->{m} {kind} config {c}: {bad} '
+                                f'indices differ from the plain version')
+                log('kernels', t0, f'{name} B={B} N={n}->M={m}: indices identical to '
+                    f'the plain version on {", ".join(FPS_KINDS)} rows in all '
+                    f'{len(fits)} configurations that hold N')
+                xyz = torch.from_numpy(fps_rows(rng, 'uniform', B, n)).cuda()
+                sweep = {c: (cuda_ms(torch, lambda c=c: kfps._launch(xyz, w, m, c), 10),
+                             cuda_ms(torch, lambda c=c: kfps.probe(xyz, m, c), 10))
+                         for c in fits}
+                for c, (ms_c, floor_c) in sweep.items():
+                    log('kernels', t0, f'  sweep {name} B={B} N={n}: config {c} '
+                        f'{kfps.CONFIGS[c]} (threads, points/thread, CTAs/row): '
+                        f'{ms_c:.4f} ms ({ms_c / (m - 1) * 1e3:.3f} us/step), probe '
+                        f'{floor_c:.4f} ms ({floor_c / (m - 1) * 1e3:.3f} us/step)'
+                        f'{"  <- chosen" if c == chosen else ""}')
+                call = ((lambda: wrapper(xyz, w, m)) if weighted
+                        else (lambda: wrapper(xyz, m)))
                 ms = cuda_ms(torch, call, 10)
+                floor_ms = cuda_ms(torch, lambda: kfps.probe(xyz, m), 10)
                 plain_ms = cuda_ms(torch, lambda: kfps.fps_reference(xyz, w, m), 1)
                 nbytes = (B * n * 3 * 4 + (B * n * 4 if weighted else 0) + B * m * 4)
                 flops = B * (m - 1) * n * (10 if weighted else 9)
                 b_bytes, b_ops = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOPS_S * 1e3
-                floor_ms = argmax_steps_ms(torch, lib, B, m)
-                log('kernels', t0, f'{name} B={B} N={n}->M={m}: indices identical; '
-                    f'kernel {ms:.3f} ms ({ms / (m - 1) * 1e3:.3f} us/step), '
-                    f'plain {plain_ms:.2f} ms, roofline bound '
-                    f'{max(b_bytes, b_ops) * 1e3:.3f} us (bytes {b_bytes * 1e3:.3f} us, '
-                    f'ops {b_ops * 1e3:.3f} us), latency floor {floor_ms:.3f} ms '
-                    f'({floor_ms / (m - 1) * 1e3:.3f} us/step, {m - 1} argmax steps)')
+                log('kernels', t0, f'{name} B={B} N={n}->M={m}: config {chosen} '
+                    f'{kfps.CONFIGS[chosen]}; kernel {ms:.4f} ms '
+                    f'({ms / (m - 1) * 1e3:.3f} us/step), plain {plain_ms:.2f} ms, '
+                    f'roofline bound {max(b_bytes, b_ops) * 1e3:.3f} us (bytes '
+                    f'{b_bytes * 1e3:.3f} us, ops {b_ops * 1e3:.3f} us), latency floor '
+                    f'{floor_ms:.4f} ms ({floor_ms / (m - 1) * 1e3:.3f} us/step, probe)')
                 if B == BATCH:   # per-forward totals: one launch per tower
                     tot['ms'] += TOWERS * ms
                     tot['plain_ms'] += TOWERS * plain_ms
                     tot['bound_ms'] += TOWERS * max(b_bytes, b_ops)
                     floor_fwd += TOWERS * floor_ms
                     by['bytes' if b_bytes >= b_ops else 'operations'] += max(b_bytes, b_ops)
-                max_err = max(max_err, err)
         log('kernels', t0, f'{name} per B={BATCH} forward: kernel {tot["ms"]:.3f} ms, '
             f'latency floor {floor_fwd:.3f} ms, roofline bound {tot["bound_ms"]:.5f} ms')
         entries.append({'name': name, 'route': 'cuda',
                         'source': 'pcd_reg_hregnet_torch/csrc/fps.cu',
-                        'replaces': src, 'max_abs_err': max_err,
+                        'replaces': src, 'max_abs_err': 0,
                         'bound_by': max(by, key=by.get), 'library_ms': None, **tot})
+    m = 1024   # the chooser's other bands, B=1: every configuration that holds N
+    for n in TABLE_NS:
+        xyz = torch.from_numpy(fps_rows(rng, 'resampled', 1, n)).cuda()
+        ref = kfps.fps_reference(xyz, None, m)
+        fits = [c for c in range(len(kfps.CONFIGS)) if kfps.capacity(c) >= n]
+        for c in fits:
+            if not torch.equal(kfps._launch(xyz, None, m, c), ref):
+                raise AssertionError(f'fps {n}->{m} config {c}: indices differ '
+                                     f'from the plain version')
+            ms_c = cuda_ms(torch, lambda c=c: kfps._launch(xyz, None, m, c), 3)
+            log('kernels', t0, f'  sweep fps B=1 N={n}->M={m}: config {c} '
+                f'{kfps.CONFIGS[c]}: indices identical; {ms_c:.4f} ms '
+                f'({ms_c / (m - 1) * 1e3:.3f} us/step)'
+                f'{"  <- chosen" if c == kfps.choose_config(n) else ""}')
+    n = kfps.MAX_POINTS
+    xyz = torch.from_numpy(fps_rows(rng, 'resampled', 1, n)).cuda()
+    w = torch.from_numpy(fps_weights(rng, 1, n)).cuda()
+    if not torch.equal(kfps._launch(xyz, w, m), kfps.fps_reference(xyz, w, m)):
+        raise AssertionError(f'weighted fps {n}->{m}: indices differ from the plain '
+                             f'version')
+    log('kernels', t0, f'weighted_fps B=1 N={n}->M={m}: indices identical')
     return entries
+
+
+def check_fps_table(lib, kfps) -> None:
+    """The wrapper's configuration table must be the compiled one."""
+    import ctypes
+    t, p, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    compiled = []
+    while lib.lib.pcdreg_fps_config(len(compiled), t, p, c) > 0:
+        compiled.append((t.value, p.value, c.value))
+    if tuple(compiled) != kfps.CONFIGS:
+        raise AssertionError(f'csrc/fps.cu configurations {compiled} differ from '
+                             f'ops/kernels/fps.py CONFIGS {kfps.CONFIGS}')
 
 
 def check_attention(torch, kattn, gen, t0) -> dict:
@@ -362,14 +438,15 @@ def main() -> int:
         f'cuda {torch.version.cuda}; count {torch.cuda.device_count()}')
 
     lib = kbuild.library()
-    log('build', t0, f'build_s {lib.build_s:.1f} (one nvcc call, '
-        f'{len(kbuild.sources())} sources)')
+    log('build', t0, f'build_s {lib.build_s:.1f} ({len(kbuild.sources())} sources '
+        f'compiled in parallel, then linked)')
     for line in ptxas_summary(lib.build_log):
         print(f'  ptxas {line}')
 
+    check_fps_table(lib, kfps)
     gen = torch.Generator().manual_seed(0)
     with fp32_numerics():   # the plain versions in full f32, as in the model's forward
-        entries = check_fps(torch, kfps, lib, gen, t0)
+        entries = check_fps(torch, kfps, t0)
         entries.append(check_attention(torch, kattn, gen, t0))
 
     launches = serve_phase(torch, t0)

@@ -1,11 +1,12 @@
 """Build the CUDA kernels with one `nvcc` call and load them with `ctypes`.
 
 Every source in `pcd_reg_hregnet_torch/csrc/*.cu` has a plain ``extern "C"``
-interface and includes no PyTorch header, so one `nvcc` invocation builds
-them all into one shared library in seconds.  The build runs at the first
-kernel launch of a process, never at import.  Each process writes its own
-library file (named after its pid), loads it and deletes it: there is no
-lock to wait on and no stale build to reuse.
+interface and includes no PyTorch header.  One `nvcc` per source compiles
+them all at once, in parallel, and one more links the objects into one
+shared library.  The build runs at the first kernel launch of a process,
+never at import.  Each process writes its own files (named after its
+pid), loads the library and deletes them: there is no lock to wait on and
+no stale build to reuse.
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ def library() -> 'KernelLibrary':
 class KernelLibrary:
     """The loaded `libpcdreg_kernels` with typed entry points.
 
-    `build_s` is the wall time of the `nvcc` call and `build_log` its
+    `build_s` is the wall time of the build and `build_log` the `nvcc`
     output, which holds the ``-Xptxas -v`` register/shared-memory/spill
     report of every kernel.
     """
@@ -64,34 +65,56 @@ class KernelLibrary:
         self.build_s = build_s
         self.build_log = build_log
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.pcdreg_fps.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+        pi = ctypes.POINTER(ctypes.c_int)
+        lib.pcdreg_fps.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
         lib.pcdreg_fps.restype = ci
+        lib.pcdreg_fps_probe.argtypes = [vp, vp, ci, ci, ci, ci, vp]
+        lib.pcdreg_fps_probe.restype = ci
+        lib.pcdreg_fps_config.argtypes = [ci, pi, pi, pi]
+        lib.pcdreg_fps_config.restype = ci
         lib.pcdreg_patch_attention.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
                                                ctypes.c_float, ci, vp]
         lib.pcdreg_patch_attention.restype = ci
-        lib.pcdreg_argmax_steps.argtypes = [vp, ci, ci, vp]
-        lib.pcdreg_argmax_steps.restype = ci
         lib.pcdreg_error_string.argtypes = [ci]
         lib.pcdreg_error_string.restype = ctypes.c_char_p
 
     @classmethod
     def build(cls) -> 'KernelLibrary':
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        out = BUILD_DIR / f'libpcdreg_kernels.{os.getpid()}.so'
-        cmd = [find_nvcc(), *ARCH_FLAGS, '-std=c++17', '-O3', '-shared',
-               '-Xcompiler', '-fPIC', '-Xptxas', '-v', '-o', str(out),
-               *map(str, sources())]
+        nvcc, pid = find_nvcc(), os.getpid()
+        out = BUILD_DIR / f'libpcdreg_kernels.{pid}.so'
+        objs = [BUILD_DIR / f'{src.stem}.{pid}.o' for src in sources()]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=NVCC_TIMEOUT_S)
-        build_s = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{log}')
         try:
+            procs = [subprocess.Popen(
+                [nvcc, *ARCH_FLAGS, '-std=c++17', '-O3', '-c', '-Xcompiler',
+                 '-fPIC', '-Xptxas', '-v', '-o', str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(sources(), objs)]
+            logs, failed = [], False
+            for proc in procs:
+                try:
+                    logs.append(proc.communicate(timeout=NVCC_TIMEOUT_S)[0])
+                except subprocess.TimeoutExpired:
+                    for p in procs:
+                        p.kill()
+                        p.wait()
+                    raise
+                failed |= proc.returncode != 0
+            log = ''.join(logs)
+            if failed:
+                raise RuntimeError(f'nvcc failed:\n{log}')
+            link = subprocess.run([nvcc, *ARCH_FLAGS, '-shared', '-o', str(out),
+                                   *map(str, objs)], capture_output=True,
+                                  text=True, timeout=NVCC_TIMEOUT_S)
+            if link.returncode != 0:
+                raise RuntimeError(f'nvcc link failed ({link.returncode}):\n'
+                                   f'{link.stdout}{link.stderr}')
+            build_s = time.perf_counter() - t0
             lib = ctypes.CDLL(str(out))
-        finally:
-            out.unlink(missing_ok=True)  # the mapping outlives the file
+        finally:   # the mapping outlives the files
+            for f in (out, *objs):
+                f.unlink(missing_ok=True)
         return cls(lib, build_s, log)
 
     def check(self, err: int, what: str) -> None:

@@ -5,6 +5,8 @@ Replaces `pcd_reg_hregnet_tpu/ops/pallas/fps.py::_fps_kernel` (K1 with
 `csrc/fps.cu`.  Semantics are `_fps_impl`'s (`ops/sampling.py`): first
 index 0, running min squared distance initialised to 1e10, argmax with
 first-index tie-break, weighted candidates scaled by their own weight.
+The kernel splits a row over a thread-block cluster of up to 8 CTAs; the
+wrapper picks the block shape from N (`choose_config`).
 """
 from __future__ import annotations
 
@@ -13,7 +15,36 @@ from typing import Optional
 import torch
 
 _INIT_DIST = 1e10
-MAX_POINTS = 16384   # 1024 threads x 16 points held in registers
+
+# (threads per CTA, points per thread, CTAs per row in a cluster); a
+# configuration's id is its position, and `csrc/fps.cu::kConfigs` holds the
+# same table.  A row of N points needs threads * points * CTAs >= N.
+CONFIGS = (
+    (1024, 8, 1), (1024, 1, 1), (512, 16, 1), (512, 8, 2), (256, 8, 4),
+    (128, 8, 8), (128, 4, 4), (128, 8, 4), (256, 8, 8), (256, 16, 8),
+    (512, 16, 8), (32, 32, 1), (32, 16, 1), (64, 8, 1), (128, 8, 1),
+    (128, 4, 1), (256, 4, 1), (256, 8, 1),
+)
+# (largest N, configuration id) in increasing N: the chooser's table, the
+# fastest configuration at each band's N in `chip_smoke.py`'s sweep on an
+# H100 (PERF.md).
+BANDS = ((512, 15), (1024, 14), (2048, 17), (4096, 7), (8192, 5),
+         (16384, 8), (32768, 9), (65536, 10))
+MAX_POINTS = BANDS[-1][0]
+
+
+def capacity(config: int) -> int:
+    """The most points a row may hold in configuration `config`."""
+    threads, ppt, cluster = CONFIGS[config]
+    return threads * ppt * cluster
+
+
+def choose_config(n: int) -> int:
+    """The configuration id the wrappers launch for rows of `n` points."""
+    for max_n, config in BANDS:
+        if n <= max_n:
+            return config
+    raise ValueError(f'fps kernel takes at most {MAX_POINTS} points a row, got {n}')
 
 
 def fps_reference(xyz: torch.Tensor, weights: Optional[torch.Tensor],
@@ -38,9 +69,9 @@ def fps_reference(xyz: torch.Tensor, weights: Optional[torch.Tensor],
     return idx.to(torch.int32)
 
 
-def _launch(xyz: torch.Tensor, weights: Optional[torch.Tensor],
-            nsample: int) -> torch.Tensor:
-    from .build import library
+def _check(xyz: torch.Tensor, weights: Optional[torch.Tensor], nsample: int,
+           config: Optional[int]) -> int:
+    """Validate a launch's arguments; returns the configuration id."""
     if xyz.dtype != torch.float32 or xyz.dim() != 3 or xyz.shape[-1] != 3:
         raise ValueError(f'fps kernel takes f32 [B, N, 3], got '
                          f'{xyz.dtype} {tuple(xyz.shape)}')
@@ -56,14 +87,47 @@ def _launch(xyz: torch.Tensor, weights: Optional[torch.Tensor],
             raise ValueError(f'fps kernel takes contiguous f32 weights [{B}, {N}] '
                              f'on {xyz.device}, got {weights.dtype} '
                              f'{tuple(weights.shape)} on {weights.device}')
+    if config is None:
+        return choose_config(N)
+    if not 0 <= config < len(CONFIGS) or capacity(config) < N:
+        raise ValueError(f'fps configuration {config} cannot hold N={N}')
+    return config
+
+
+def _launch(xyz: torch.Tensor, weights: Optional[torch.Tensor],
+            nsample: int, config: Optional[int] = None) -> torch.Tensor:
+    """Launch K1 (`weights` None) or K2 in configuration `config` (the
+    chooser's by default); counts nothing."""
+    from .build import library
+    config = _check(xyz, weights, nsample, config)
+    B, N, _ = xyz.shape
     out = torch.empty((B, nsample), dtype=torch.int32, device=xyz.device)
     lib = library()
     with torch.cuda.device(xyz.device):
         err = lib.lib.pcdreg_fps(
             xyz.data_ptr(), None if weights is None else weights.data_ptr(),
-            out.data_ptr(), B, N, nsample,
+            out.data_ptr(), B, N, nsample, config,
             torch.cuda.current_stream(xyz.device).cuda_stream)
     lib.check(err, 'pcdreg_fps')
+    return out
+
+
+def probe(xyz: torch.Tensor, nsample: int,
+          config: Optional[int] = None) -> torch.Tensor:
+    """Launch the latency probe of `csrc/fps.cu`: the kernel's nsample-1
+    steps of reduction and synchronisation in configuration `config`, with
+    no distance update.  Its time is the floor of one FPS call of that
+    configuration; its output is not FPS indices."""
+    from .build import library
+    config = _check(xyz, None, nsample, config)
+    B, N, _ = xyz.shape
+    out = torch.empty((B, nsample), dtype=torch.int32, device=xyz.device)
+    lib = library()
+    with torch.cuda.device(xyz.device):
+        err = lib.lib.pcdreg_fps_probe(
+            xyz.data_ptr(), out.data_ptr(), B, N, nsample, config,
+            torch.cuda.current_stream(xyz.device).cuda_stream)
+    lib.check(err, 'pcdreg_fps_probe')
     return out
 
 
