@@ -20,14 +20,23 @@ Phases, each printing its own line with seconds:
    timed (the sweep behind the chooser), and the chosen one is timed with
    its latency floor, measured by the kernel's probe (the same steps with
    no distance update); rows of 2048-65536 points check and time the
-   chooser's other bands.  Patch attention within 1e-5 in f32 and 2e-2 in
-   bf16;
+   chooser's other bands; rows of 131072 and 1M points check and time the
+   global-memory variant.  Patch attention within 1e-5 in f32 and 2e-2 in
+   bf16: its tiling against the compiled one, every (K, d) of the forward
+   at B=8 and B=1 timed beside SDPA, its bounds and a sweep of query rows
+   per block (with a note where `plan`'s choice reads more than 5% slower
+   than the sweep's best), then shapes with any K and d, and strided views;
+   K3 and SDPA are timed as calls issued back to back (the JSON line's
+   figures, as for FPS) and as device time (20 calls captured in a CUDA
+   graph and replayed: `pcd_reg_hregnet_torch/time_attention.py`), which
+   the bound's share is taken of;
 4. serve: `model_v6` at full width (8096-point clouds, 1024/512/256
    keypoints, PTv3 depths (2,2,2)) with seeded random weights registers two
    raw pairs through `serve.infer_pair` and one B=8 batch through
    `serve.register`; every kernel's launch count must rise by exactly its
    launches per forward; outputs must be finite; the card's poses must
-   agree with the port's CPU forward at B=1.
+   agree with the port's CPU forward at B=1, run on `CPU_THREADS` threads
+   (its last bits, and so any near-tie it decides, depend on the count).
 
 Ends with a JSON line of per-kernel numbers, the card's name and power
 limit, the total seconds, and the result line.  In the JSON line, `ms`,
@@ -50,6 +59,7 @@ import numpy as np
 HBM_BYTES_S = 3.35e12
 F32_FLOPS_S = 67e12
 BF16_FLOPS_S = 989e12
+TF32_FLOPS_S = 495e12   # K3's f32 path runs 3 TF32 products per f32 product
 
 N_POINTS = 8096
 BATCH = 8
@@ -57,16 +67,20 @@ FPS_SHAPES = ((N_POINTS, 1024),)                 # K1: (N, M) per tower
 WFPS_SHAPES = ((1024, 512), (512, 256))          # K2: L2, L3 per tower
 FPS_KINDS = ('uniform', 'resampled', 'grid', 'nan')
 TABLE_NS = (2048, 4096, 16384, 32768, 65536)     # the chooser's other bands
-# K3 per tower: (patch K, channels C) per level x heads per stage, R = 4B
-ATTN_LEVELS = ((256, 64), (128, 128), (64, 256))
-ATTN_HEADS = (2, 4, 8)
 ATTN_DEPTH = 2                                   # PTv3 blocks per stage
 TOWERS = 2
 ATTN_TOL = {'float32': 1e-5, 'bfloat16': 2e-2}
+# [R, H, K, d] checked for correctness only: shapes the first K3 refused
+# (K=1024 d=32, K=256 d=128, d=24, d=256 split over blocks, ragged K) and
+# odd widths whose rows cannot be copied 16 bytes at a time
+ATTN_OPENED = ((2, 2, 1024, 32), (4, 2, 256, 128), (4, 3, 64, 24), (2, 2, 64, 256),
+               (4, 2, 100, 16), (2, 3, 100, 5), (1, 1, 1, 1), (2, 1, 33, 300))
+GLOBAL_NS = (131072, 1 << 20)                    # FPS rows in device memory
 # CPU vs card at B=1: an L2/L3 weighted-FPS near-tie may select another
 # keypoint when sigmas differ in the last bits between the two devices
 POSE_TOL_R = 1e-3
 POSE_TOL_T = 1e-2   # metres
+CPU_THREADS = 1     # the CPU forward's threads, as in tests/test_torch_*.py
 SERVE_REPS = 20     # timed forwards per batch size
 
 
@@ -237,13 +251,28 @@ def check_fps(torch, kfps, t0) -> list[dict]:
                 f'{kfps.CONFIGS[c]}: indices identical; {ms_c:.4f} ms '
                 f'({ms_c / (m - 1) * 1e3:.3f} us/step)'
                 f'{"  <- chosen" if c == kfps.choose_config(n) else ""}')
-    n = kfps.MAX_POINTS
+    n = kfps.BANDS[-1][0]
     xyz = torch.from_numpy(fps_rows(rng, 'resampled', 1, n)).cuda()
     w = torch.from_numpy(fps_weights(rng, 1, n)).cuda()
     if not torch.equal(kfps._launch(xyz, w, m), kfps.fps_reference(xyz, w, m)):
         raise AssertionError(f'weighted fps {n}->{m}: indices differ from the plain '
                              f'version')
     log('kernels', t0, f'weighted_fps B=1 N={n}->M={m}: indices identical')
+    for n in GLOBAL_NS:   # above the bands: the global-memory variant
+        for weighted, kind in ((False, 'grid'), (True, 'uniform')):
+            xyz = torch.from_numpy(fps_rows(rng, kind, 1, n)).cuda()
+            w = torch.from_numpy(fps_weights(rng, 1, n)).cuda() if weighted else None
+            if kfps.choose_config(n) != kfps.GLOBAL_MEMORY:
+                raise AssertionError(f'fps N={n} does not take the global-memory variant')
+            got = kfps._launch(xyz, w, m)
+            if not torch.equal(got, kfps.fps_reference(xyz, w, m)):
+                raise AssertionError(f'{"weighted " if weighted else ""}fps {n}->{m} '
+                                     f'global-memory variant: indices differ from '
+                                     f'the plain version')
+            ms = cuda_ms(torch, lambda: kfps._launch(xyz, w, m), 2)
+            log('kernels', t0, f'{"weighted_fps" if weighted else "fps"} B=1 N={n}->M={m} '
+                f'({kind} row), global-memory variant: indices identical; {ms:.3f} ms '
+                f'({ms / (m - 1) * 1e3:.2f} us/step)')
     return entries
 
 
@@ -259,50 +288,140 @@ def check_fps_table(lib, kfps) -> None:
                              f'ops/kernels/fps.py CONFIGS {kfps.CONFIGS}')
 
 
-def check_attention(torch, kattn, gen, t0) -> dict:
-    """K3 at every (K, d) of the forward, f32 and bf16, R = 4B."""
+def attn_bounds(R, H, K, d, dtype, esize):
+    """(bytes, operations) times in ms of one call: each input read once and
+    the output written once over HBM; FLOPs over the card's rate for the
+    products the kernel runs (f32: three TF32 products each; also returned,
+    third, against the 67 TFLOP/s of f32 on the CUDA cores)."""
+    nbytes = 4 * R * H * K * d * esize
+    flops = 4 * R * H * K * K * d
+    rate = TF32_FLOPS_S / 3 if esize == 4 else BF16_FLOPS_S
+    return nbytes / HBM_BYTES_S * 1e3, flops / rate * 1e3, flops / F32_FLOPS_S * 1e3
+
+
+def block_shapes(d, dtype):
+    """Every (rows per block, warps per 16 rows) the kernel is built with
+    for head dim d."""
+    from pcd_reg_hregnet_torch.ops.kernels import attention as kattn
+    shapes = []
+    for split in kattn.splits(d, dtype):
+        for bm in kattn.BLOCK_ROWS:
+            try:
+                kattn.plan(1, 1, 64, d, dtype, bm, split)
+            except ValueError:   # more warps or shared memory than a block has
+                continue
+            shapes.append((bm, split))
+    return shapes
+
+
+def check_attention(torch, lib, kattn, gen, t0) -> dict:
+    """K3: its tiling against the compiled one; every (K, d) of the forward
+    at B=8 and B=1 (R = 4B), f32 and bf16, against the plain version, timed
+    beside SDPA and its bounds, with the sweep of query rows per block; the
+    shapes the first K3 refused, and strided views, for correctness."""
+    import ctypes
+
+    from pcd_reg_hregnet_torch.time_attention import call_ms, device_ms, shapes
     F = torch.nn.functional
+    dp, bn, sl = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (1, 5, 8, 9, 16, 24, 32, 48, 64, 100, 128, 129, 256, 300):
+            for bm, split in block_shapes(d, dtype):
+                p = kattn.plan(1, 1, 64, d, dtype, bm, split)
+                smem = lib.lib.pcdreg_attention_plan(d, kattn._DTYPE_CODES[dtype], bm, split,
+                                                     dp, bn, sl)
+                if (smem, dp.value, bn.value, sl.value) != (p.smem, p.dp, p.bn, p.slices):
+                    raise AssertionError(f'attention plan d={d} {dtype}: csrc ({smem}, '
+                                         f'{dp.value}, {bn.value}, {sl.value}) != '
+                                         f'ops/kernels {p}')
+
+    def check(q, k, v, scale, out=None, what='', shape=(None, None)):
+        got = kattn._launch(q, k, v, scale, out, *shape)
+        ref = kattn.patch_attention_reference(q, k, v, scale)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        tol = ATTN_TOL[str(q.dtype).split('.')[-1]]
+        if not err <= tol:
+            raise AssertionError(f'patch_attention {what} {tuple(q.shape)} {q.dtype}: '
+                                 f'max |err| {err} > {tol}')
+        return err
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'library_ms': 0.0}
+    dev_fwd = lib_dev_fwd = bound_67 = 0.0
     max_err = 0.0
     by = {'bytes': 0.0, 'operations': 0.0}
-    R = 4 * BATCH
-    for K, C in ATTN_LEVELS:
-        for H in ATTN_HEADS:
-            d = C // H
+    for B in (BATCH, 1):
+        for R, H, K, d in shapes(B):
             scale = d ** -0.5
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v = (torch.randn((R, H, K, d), generator=gen).to('cuda', dtype)
                            for _ in range(3))
-                got = kattn.patch_attention(q, k, v, scale)
-                ref = kattn.patch_attention_reference(q, k, v, scale)
-                torch.cuda.synchronize()
-                err = float((got.float() - ref.float()).abs().max())
-                tol = ATTN_TOL[str(dtype).split('.')[-1]]
-                if not err <= tol:
-                    raise AssertionError(f'patch_attention K={K} d={d} {dtype}: '
-                                         f'max |err| {err} > {tol}')
-                ms = cuda_ms(torch, lambda: kattn.patch_attention(q, k, v, scale), 20)
-                plain_ms = cuda_ms(torch, lambda: kattn.patch_attention_reference(
+                err = check(q, k, v, scale)
+                ms = call_ms(lambda: kattn.patch_attention(q, k, v, scale), 20)
+                dev = device_ms(lambda: kattn.patch_attention(q, k, v, scale), 20)
+                plain_ms = call_ms(lambda: kattn.patch_attention_reference(
                     q, k, v, scale), 20)
-                lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                lib_ms = call_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, scale=scale), 20)
-                nbytes = 4 * R * H * K * d * q.element_size()
-                flops = 4 * R * H * K * K * d
-                peak = F32_FLOPS_S if dtype == torch.float32 else BF16_FLOPS_S
-                b_bytes, b_ops = nbytes / HBM_BYTES_S * 1e3, flops / peak * 1e3
-                log('kernels', t0, f'patch_attention R={R} H={H} K={K} d={d} '
-                    f'{str(dtype)[6:]}: max|err| {err:.2e} (tol {tol}); kernel '
-                    f'{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, '
-                    f'bound {max(b_bytes, b_ops):.5f} ms '
-                    f'({"bytes" if b_bytes >= b_ops else "operations"})')
-                if dtype == torch.float32:   # the forward runs f32
+                lib_dev = device_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, scale=scale), 20)
+                b_bytes, b_ops, b_67 = attn_bounds(R, H, K, d, dtype, q.element_size())
+                p = kattn.plan(R, H, K, d, dtype, sms=sms)
+                bound = max(b_bytes, b_ops)
+                kind = 'bytes' if b_bytes >= b_ops else 'operations'
+                extra = (f', bound at 67 TFLOP/s {max(b_bytes, b_67) * 1e3:.2f} us'
+                         if dtype == torch.float32 else '')
+                log('kernels', t0, f'patch_attention B={B} R={R} H={H} K={K} d={d} '
+                    f'{str(dtype)[6:]}: max|err| {err:.2e}; back to back: kernel '
+                    f'{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, sdpa '
+                    f'{lib_ms * 1e3:.2f} us; device time: kernel {dev * 1e3:.2f} us '
+                    f'(bm {p.bm}, split {p.split}), sdpa {lib_dev * 1e3:.2f} us '
+                    f'({lib_dev / dev:.2f}x the kernel), bound {bound * 1e3:.2f} us '
+                    f'({kind}){extra}, share of bound {bound / dev:.1%}')
+                sweep = {}
+                for c in block_shapes(d, dtype):
+                    err = max(err, check(q, k, v, scale, what=f'(bm, split) {c}', shape=c))
+                    sweep[c] = device_ms(lambda c=c: kattn._launch(
+                        q, k, v, scale, bm=c[0], split=c[1]), 20)
+                log('kernels', t0, '  sweep (bm, split), device time: ' + ', '.join(
+                    f'{c} {t * 1e3:.2f} us' for c, t in sweep.items()))
+                best = min(sweep, key=sweep.get)
+                if sweep[(p.bm, p.split)] > 1.05 * sweep[best]:
+                    log('kernels', t0, f'  note: plan\'s {(p.bm, p.split)} reads '
+                        f'{sweep[(p.bm, p.split)] / sweep[best] - 1:.0%} slower than {best}')
+                if dtype == torch.float32 and B == BATCH:   # the forward runs f32
                     n = ATTN_DEPTH * TOWERS
                     tot['ms'] += n * ms
                     tot['plain_ms'] += n * plain_ms
                     tot['library_ms'] += n * lib_ms
-                    tot['bound_ms'] += n * max(b_bytes, b_ops)
+                    tot['bound_ms'] += n * bound
+                    dev_fwd += n * dev
+                    lib_dev_fwd += n * lib_dev
+                    bound_67 += n * max(b_bytes, b_67)
                     max_err = max(max_err, err)
-                    by['bytes' if b_bytes >= b_ops else 'operations'] += max(b_bytes, b_ops)
+                    by[kind] += bound
+    log('kernels', t0, f'patch_attention per B={BATCH} forward (f32): back to back: '
+        f'kernel {tot["ms"]:.4f} ms, sdpa {tot["library_ms"]:.4f} ms, plain '
+        f'{tot["plain_ms"]:.4f} ms; device time: kernel {dev_fwd:.4f} ms, sdpa '
+        f'{lib_dev_fwd:.4f} ms; bound {tot["bound_ms"]:.4f} ms (3xTF32), '
+        f'{bound_67:.4f} ms (67 TFLOP/s)')
+
+    for shape in ATTN_OPENED:   # correctness only
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen).to('cuda', dtype) for _ in range(3))
+            err = max(check(q, k, v, shape[-1] ** -0.5, what=f'(bm, split) {c}', shape=c)
+                      for c in [(None, None)] + block_shapes(shape[-1], dtype))
+            log('kernels', t0, f'patch_attention {shape} {str(dtype)[6:]}: max|err| {err:.2e} '
+                f'over every (rows per block, split)')
+    for R, H, K, d in ((4 * BATCH, 2, 256, 32), (4, 8, 64, 32), (2, 3, 100, 24)):
+        for dtype in (torch.float32, torch.bfloat16):   # the model's views
+            qkv = torch.randn((R, K, 3, H, d), generator=gen).to('cuda', dtype)
+            q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+            buf = torch.empty((R, K, H, d), dtype=dtype, device='cuda')
+            err = check(q, k, v, d ** -0.5, buf.transpose(1, 2), 'strided')
+            log('kernels', t0, f'patch_attention strided views of [R, K, 3, H, d] = '
+                f'{(R, K, 3, H, d)} into [R, K, H, d] {str(dtype)[6:]}: max|err| {err:.2e}')
     return {'name': 'patch_attention', 'route': 'cuda',
             'source': 'pcd_reg_hregnet_torch/csrc/attention.cu',
             'replaces': 'pcd_reg_hregnet_tpu/ops/pallas/attention.py:31',
@@ -396,15 +515,28 @@ def serve_phase(torch, t0) -> dict:
         prep.append(pts[None])
     cpu_model = zoo.build('model_v6', device='cpu', seed=0)
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    t_cpu = time.perf_counter()
-    with torch.no_grad():
-        out_cpu = cpu_model(torch.from_numpy(prep[0]), torch.from_numpy(prep[1]))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(CPU_THREADS)
+    try:
+        t_cpu = time.perf_counter()
+        with torch.no_grad():
+            out_cpu = cpu_model(torch.from_numpy(prep[0]), torch.from_numpy(prep[1]))
         cpu_s = time.perf_counter() - t_cpu
+        idx_cpu = fps(torch.from_numpy(prep[0]), cfg.levels[0].nsample)
+    finally:
+        torch.set_num_threads(threads)
+    with torch.no_grad():
         out_gpu = model(torch.from_numpy(prep[0]).cuda(), torch.from_numpy(prep[1]).cuda())
     idx_gpu = fps(torch.from_numpy(prep[0]).cuda(), cfg.levels[0].nsample).cpu()
-    idx_cpu = fps(torch.from_numpy(prep[0]), cfg.levels[0].nsample)
     if not torch.equal(idx_gpu, idx_cpu):
         raise AssertionError('L1 FPS indices differ between the card and the CPU')
+
+    def dxyz(lvl):
+        return max(float((out_gpu[s][f'xyz_{lvl}'].cpu() - out_cpu[s][f'xyz_{lvl}']).abs().max())
+                   for s in ('src_feats', 'dst_feats'))
+    log('serve', t0, 'keypoints card vs CPU, max|dxyz| (m; a keypoint chosen differently '
+        'shows at its level and the coarser ones): '
+        + ', '.join(f'L{lvl} {dxyz(lvl):.2e}' for lvl in (1, 2, 3)))
     worst_r = worst_t = 0.0
     for lvl, (Rg, tg, Rc, tc) in enumerate(zip(out_gpu['rotation'], out_gpu['translation'],
                                                out_cpu['rotation'], out_cpu['translation'])):
@@ -416,7 +548,8 @@ def serve_phase(torch, t0) -> dict:
         raise AssertionError(f'card vs CPU poses: |dR| {worst_r} (tol {POSE_TOL_R}), '
                              f'|dt| {worst_t} (tol {POSE_TOL_T})')
     log('serve', t0, f'L1 FPS indices identical card vs CPU; poses within '
-        f'{POSE_TOL_R} / {POSE_TOL_T} m (CPU forward {cpu_s:.1f} s)')
+        f'{POSE_TOL_R} / {POSE_TOL_T} m (CPU forward {cpu_s:.1f} s on {CPU_THREADS} '
+        f'threads)')
     return launches
 
 
@@ -447,7 +580,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     with fp32_numerics():   # the plain versions in full f32, as in the model's forward
         entries = check_fps(torch, kfps, t0)
-        entries.append(check_attention(torch, kattn, gen, t0))
+        entries.append(check_attention(torch, lib, kattn, gen, t0))
 
     launches = serve_phase(torch, t0)
     for e in entries:

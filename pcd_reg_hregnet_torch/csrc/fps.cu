@@ -51,6 +51,13 @@
 // of -inf and a thread without a real point offers key 0, below every
 // real key, so padding never wins.
 //
+// Rows above the largest configuration (65536 points) take the
+// global-memory variant (GLOBAL): kGlobal threads per CTA and kGlobalCluster
+// CTAs per row, whose points and running distances stay in device memory
+// (a 1M-point row is 16 MB, resident in the 50 MB L2) and are re-read every
+// step, any number of them per thread; its argmax, records and
+// synchronisation are the kernel's own.
+//
 // The configurations (T threads per CTA, PPT points per thread, C CTAs
 // per row) are the table kConfigs below; the wrapper (ops/kernels/fps.py)
 // mirrors it and picks one per N from a sweep on the card.  The latency
@@ -100,6 +107,9 @@ constexpr Config kConfigs[] = {
     {256, 8, 1},   // 17: 2048 points
 };
 constexpr int kNumConfigs = sizeof(kConfigs) / sizeof(kConfigs[0]);
+// The global-memory variant: configuration id kNumConfigs, any N.
+constexpr int kGlobal = 1024;
+constexpr int kGlobalCluster = 8;
 
 // Minimum and maximum that propagate NaN, as torch.minimum / jnp.minimum
 // and torch.argmax's "NaN is the largest" do.
@@ -177,10 +187,11 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-template <int T, int PPT, int C, bool WEIGHTED, bool PROBE>
+template <int T, int PPT, int C, bool WEIGHTED, bool PROBE, bool GLOBAL>
 __global__ void __launch_bounds__(T)
 fps_kernel(const float* __restrict__ xyz, const float* __restrict__ weights,
-           int32_t* __restrict__ out, int n, int m, int chunk) {
+           float* __restrict__ dist, int32_t* __restrict__ out, int n, int m,
+           int chunk) {
   constexpr int W = T / 32;   // warps per CTA
   constexpr int R = W * C;    // records per step
   constexpr bool kRecords = R > 1;
@@ -206,8 +217,13 @@ fps_kernel(const float* __restrict__ xyz, const float* __restrict__ weights,
   int32_t* o = out + (size_t)row * m;
 
   float px[PPT], py[PPT], pz[PPT], pw[PPT], temp[PPT];
+  // GLOBAL: this CTA's running distances, in device memory
+  float* dr = GLOBAL ? dist + (size_t)row * n + base : nullptr;
+  if constexpr (GLOBAL) {
+    for (int j = tid; j < cn; j += T) dr[j] = kInitDist;
+  }
 #pragma unroll
-  for (int i = 0; i < PPT; ++i) {
+  for (int i = 0; i < (GLOBAL ? 0 : PPT); ++i) {
     const int j = tid + i * T;
     const bool ok = j < cn;
     const float x = ok ? p[3 * (base + j) + 0] : 0.f;
@@ -247,6 +263,30 @@ fps_kernel(const float* __restrict__ xyz, const float* __restrict__ weights,
     int slot = 0;
     if constexpr (PROBE) {
       bv = (float)((tid * 37 + rank * 101 + last) & 1023);
+    } else if constexpr (GLOBAL) {   // slot i is point tid + i * T of the CTA
+      const float* pb = p + 3 * (size_t)base;
+      const float* wb = WEIGHTED ? weights + (size_t)row * n + base : nullptr;
+      int i = 0;
+      for (int j = tid; j < cn; j += T, ++i) {
+        const float dx = __fsub_rn(pb[3 * j + 0], lx);
+        const float dy = __fsub_rn(pb[3 * j + 1], ly);
+        const float dz = __fsub_rn(pb[3 * j + 2], lz);
+        float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                            __fmul_rn(dz, dz));
+        if (WEIGHTED) d = __fmul_rn(d, wb[j]);
+        const float t = nan_min(dr[j], d);
+        dr[j] = t;
+        if (t > bv) slot = i;
+        bv = nan_max(bv, t);
+      }
+      if (isnan(bv)) {   // rare: the first NaN slot wins
+        i = 0;
+        for (int j = tid; j < cn; j += T, ++i)
+          if (isnan(dr[j])) {
+            slot = i;
+            break;
+          }
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < PPT; ++i) {
@@ -276,9 +316,9 @@ fps_kernel(const float* __restrict__ xyz, const float* __restrict__ weights,
     const int wi = (int)__reduce_min_sync(kFull, cand);
     const int wl = wi - base;
     const bool real = wk != 0u;   // the warp holds a real point
-    float wx = real ? s_x[wl] : 0.f;
-    float wy = real ? s_y[wl] : 0.f;
-    float wz = real ? s_z[wl] : 0.f;
+    float wx = real ? (GLOBAL ? p[3 * (size_t)(base + wl) + 0] : s_x[wl]) : 0.f;
+    float wy = real ? (GLOBAL ? p[3 * (size_t)(base + wl) + 1] : s_y[wl]) : 0.f;
+    float wz = real ? (GLOBAL ? p[3 * (size_t)(base + wl) + 2] : s_z[wl]) : 0.f;
     int wins = wi;
 
     if constexpr (kRecords) {
@@ -355,18 +395,19 @@ cudaError_t opt_in_smem(K kernel, std::atomic<int>* granted, int bytes) {
   return e;
 }
 
-template <int T, int PPT, int C, bool WEIGHTED, bool PROBE>
-cudaError_t launch(const float* xyz, const float* w, int32_t* out, int b,
-                   int n, int m, cudaStream_t stream) {
+template <int T, int PPT, int C, bool WEIGHTED, bool PROBE, bool GLOBAL = false>
+cudaError_t launch(const float* xyz, const float* w, float* dist, int32_t* out,
+                   int b, int n, int m, cudaStream_t stream) {
   static std::atomic<int> granted[kMaxDevices];
   const int chunk = (n + C - 1) / C;
-  if (chunk > T * PPT) return cudaErrorInvalidValue;
-  const int smem = 3 * (int)sizeof(float) * chunk;
-  auto kernel = fps_kernel<T, PPT, C, WEIGHTED, PROBE>;
+  if (!GLOBAL && chunk > T * PPT) return cudaErrorInvalidValue;
+  if (GLOBAL && dist == nullptr) return cudaErrorInvalidValue;
+  const int smem = GLOBAL ? 0 : 3 * (int)sizeof(float) * chunk;
+  auto kernel = fps_kernel<T, PPT, C, WEIGHTED, PROBE, GLOBAL>;
   cudaError_t e = opt_in_smem(kernel, granted, smem);
   if (e != cudaSuccess) return e;
   if constexpr (C == 1) {
-    kernel<<<b, T, smem, stream>>>(xyz, w, out, n, m, chunk);
+    kernel<<<b, T, smem, stream>>>(xyz, w, dist, out, n, m, chunk);
   } else {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(b * C);
@@ -380,24 +421,28 @@ cudaError_t launch(const float* xyz, const float* w, int32_t* out, int b,
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    e = cudaLaunchKernelEx(&cfg, kernel, xyz, w, out, n, m, chunk);
+    e = cudaLaunchKernelEx(&cfg, kernel, xyz, w, dist, out, n, m, chunk);
     if (e != cudaSuccess) return e;
   }
   return cudaGetLastError();
 }
 
-// Launch configuration `id` of kConfigs, resolved at compile time.
+// Launch configuration `id` of kConfigs, resolved at compile time; id
+// kNumConfigs is the global-memory variant (not probed).
 template <bool WEIGHTED, bool PROBE, int I = 0>
-cudaError_t dispatch(int id, const float* xyz, const float* w, int32_t* out,
-                     int b, int n, int m, cudaStream_t s) {
+cudaError_t dispatch(int id, const float* xyz, const float* w, float* dist,
+                     int32_t* out, int b, int n, int m, cudaStream_t s) {
   if constexpr (I == kNumConfigs) {
-    return cudaErrorInvalidValue;
+    if (PROBE || id != kNumConfigs) return cudaErrorInvalidValue;
+    return launch<kGlobal, 1, kGlobalCluster, WEIGHTED, false, true>(xyz, w, dist, out,
+                                                                     b, n, m, s);
   } else {
     if (id == I) {
       constexpr Config c = kConfigs[I];
-      return launch<c.threads, c.ppt, c.cluster, WEIGHTED, PROBE>(xyz, w, out, b, n, m, s);
+      return launch<c.threads, c.ppt, c.cluster, WEIGHTED, PROBE>(xyz, w, dist, out,
+                                                                  b, n, m, s);
     }
-    return dispatch<WEIGHTED, PROBE, I + 1>(id, xyz, w, out, b, n, m, s);
+    return dispatch<WEIGHTED, PROBE, I + 1>(id, xyz, w, dist, out, b, n, m, s);
   }
 }
 
@@ -405,17 +450,20 @@ cudaError_t dispatch(int id, const float* xyz, const float* w, int32_t* out,
 
 // xyz [b, n, 3] f32, weights [b, n] f32 or null, out [b, m] int32; all
 // contiguous on the current device.  1 <= m <= n, and n must fit
-// configuration `config` (threads * ppt * cluster points).  Returns the
-// cudaError_t of the launch (0 on success).
-extern "C" int pcdreg_fps(const void* xyz, const void* weights, void* out,
+// configuration `config` (threads * ppt * cluster points), or config is
+// kNumConfigs (the global-memory variant, any n), which keeps its running
+// distances in `dist` [b, n] f32 (scratch; null for the other configs).
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int pcdreg_fps(const void* xyz, const void* weights, void* dist, void* out,
                           int b, int n, int m, int config, void* stream) {
   if (b <= 0 || n <= 0 || m <= 0 || m > n) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const float* x = (const float*)xyz;
+  float* dd = (float*)dist;
   int32_t* o = (int32_t*)out;
   if (weights)
-    return (int)dispatch<true, false>(config, x, (const float*)weights, o, b, n, m, s);
-  return (int)dispatch<false, false>(config, x, nullptr, o, b, n, m, s);
+    return (int)dispatch<true, false>(config, x, (const float*)weights, dd, o, b, n, m, s);
+  return (int)dispatch<false, false>(config, x, nullptr, dd, o, b, n, m, s);
 }
 
 // The latency probe of configuration `config`: the kernel above with the
@@ -425,7 +473,7 @@ extern "C" int pcdreg_fps(const void* xyz, const void* weights, void* out,
 extern "C" int pcdreg_fps_probe(const void* xyz, void* out, int b, int n, int m,
                                 int config, void* stream) {
   if (b <= 0 || n <= 0 || m <= 0 || m > n) return (int)cudaErrorInvalidValue;
-  return (int)dispatch<false, true>(config, (const float*)xyz, nullptr,
+  return (int)dispatch<false, true>(config, (const float*)xyz, nullptr, nullptr,
                                     (int32_t*)out, b, n, m, (cudaStream_t)stream);
 }
 

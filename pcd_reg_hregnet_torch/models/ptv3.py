@@ -82,11 +82,12 @@ class PatchAttention(nn.Module):
         K = min(self.patch_size, N)
         H = self.num_heads
         d = C // H
-        qkv = self.Dense_0(x).reshape(B * (N // K), K, 3, H, d)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)  # [R,H,K,d]
-        out = patch_attention(q, k, v, d ** -0.5)
-        out = out.transpose(1, 2).reshape(B, N, C)
-        return self.Dense_1(out)
+        R = B * (N // K)
+        qkv = self.Dense_0(x).reshape(R, K, 3, H, d)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)   # [R,H,K,d] views, no copy
+        out = torch.empty((R, K, H, d), dtype=x.dtype, device=x.device)
+        patch_attention(q, k, v, d ** -0.5, out=out.transpose(1, 2))
+        return self.Dense_1(out.reshape(B, N, C))
 
 
 class PTv3Mlp(nn.Module):

@@ -69,6 +69,12 @@ class RegistrationModel(nn.Module):
             raise NotImplementedError(f'head {cfg.head!r} is not ported yet (svd only)')
         if cfg.mi_from_coarse:
             raise NotImplementedError('mi_from_coarse is not ported yet')
+        if cfg.compute_dtype != 'float32':
+            raise NotImplementedError(
+                f'compute_dtype {cfg.compute_dtype!r} is not ported yet (float32 only)')
+        if cfg.seq_axis is not None:
+            raise NotImplementedError(
+                f'seq_axis {cfg.seq_axis!r}: sequence parallelism is not ported yet')
         self.cfg = cfg
         self.feature_extraction = HierFeatureExtraction(cfg)
         c1, c2, c3 = (lvl.desc_dim for lvl in cfg.levels)

@@ -66,15 +66,17 @@ class KernelLibrary:
         self.build_log = build_log
         vp, ci = ctypes.c_void_p, ctypes.c_int
         pi = ctypes.POINTER(ctypes.c_int)
-        lib.pcdreg_fps.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.pcdreg_fps.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.pcdreg_fps.restype = ci
         lib.pcdreg_fps_probe.argtypes = [vp, vp, ci, ci, ci, ci, vp]
         lib.pcdreg_fps_probe.restype = ci
         lib.pcdreg_fps_config.argtypes = [ci, pi, pi, pi]
         lib.pcdreg_fps_config.restype = ci
-        lib.pcdreg_patch_attention.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
-                                               ctypes.c_float, ci, vp]
+        lib.pcdreg_patch_attention.argtypes = [
+            vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, vp]
         lib.pcdreg_patch_attention.restype = ci
+        lib.pcdreg_attention_plan.argtypes = [ci, ci, ci, ci, pi, pi, pi]
+        lib.pcdreg_attention_plan.restype = ci
         lib.pcdreg_error_string.argtypes = [ci]
         lib.pcdreg_error_string.restype = ctypes.c_char_p
 

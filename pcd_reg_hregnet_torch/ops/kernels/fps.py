@@ -6,7 +6,9 @@ Replaces `pcd_reg_hregnet_tpu/ops/pallas/fps.py::_fps_kernel` (K1 with
 index 0, running min squared distance initialised to 1e10, argmax with
 first-index tie-break, weighted candidates scaled by their own weight.
 The kernel splits a row over a thread-block cluster of up to 8 CTAs; the
-wrapper picks the block shape from N (`choose_config`).
+wrapper picks the block shape from N (`choose_config`).  Rows above 65536
+points take the global-memory variant, whose points and running distances
+stay in device memory (any N).
 """
 from __future__ import annotations
 
@@ -30,11 +32,17 @@ CONFIGS = (
 # H100 (PERF.md).
 BANDS = ((512, 15), (1024, 14), (2048, 17), (4096, 7), (8192, 5),
          (16384, 8), (32768, 9), (65536, 10))
-MAX_POINTS = BANDS[-1][0]
+# The id of the global-memory variant (`csrc/fps.cu`: 1024 threads, 8 CTAs
+# per row, points and running distances in device memory), for any N above
+# the bands.
+GLOBAL_MEMORY = len(CONFIGS)
+MAX_INT32 = 2 ** 31 - 1
 
 
 def capacity(config: int) -> int:
     """The most points a row may hold in configuration `config`."""
+    if config == GLOBAL_MEMORY:
+        return MAX_INT32
     threads, ppt, cluster = CONFIGS[config]
     return threads * ppt * cluster
 
@@ -44,7 +52,7 @@ def choose_config(n: int) -> int:
     for max_n, config in BANDS:
         if n <= max_n:
             return config
-    raise ValueError(f'fps kernel takes at most {MAX_POINTS} points a row, got {n}')
+    return GLOBAL_MEMORY
 
 
 def fps_reference(xyz: torch.Tensor, weights: Optional[torch.Tensor],
@@ -78,8 +86,8 @@ def _check(xyz: torch.Tensor, weights: Optional[torch.Tensor], nsample: int,
     if not xyz.is_contiguous():
         raise ValueError('fps kernel takes a contiguous xyz')
     B, N, _ = xyz.shape
-    if not 1 <= nsample <= N or N > MAX_POINTS:
-        raise ValueError(f'fps kernel needs 1 <= nsample <= N <= {MAX_POINTS}, '
+    if not 1 <= nsample <= N <= MAX_INT32:
+        raise ValueError(f'fps kernel needs 1 <= nsample <= N <= {MAX_INT32}, '
                          f'got nsample={nsample}, N={N}')
     if weights is not None:
         if (weights.dtype != torch.float32 or tuple(weights.shape) != (B, N)
@@ -89,7 +97,7 @@ def _check(xyz: torch.Tensor, weights: Optional[torch.Tensor], nsample: int,
                              f'{tuple(weights.shape)} on {weights.device}')
     if config is None:
         return choose_config(N)
-    if not 0 <= config < len(CONFIGS) or capacity(config) < N:
+    if not 0 <= config <= GLOBAL_MEMORY or capacity(config) < N:
         raise ValueError(f'fps configuration {config} cannot hold N={N}')
     return config
 
@@ -102,11 +110,13 @@ def _launch(xyz: torch.Tensor, weights: Optional[torch.Tensor],
     config = _check(xyz, weights, nsample, config)
     B, N, _ = xyz.shape
     out = torch.empty((B, nsample), dtype=torch.int32, device=xyz.device)
+    dist = (torch.empty((B, N), dtype=torch.float32, device=xyz.device)
+            if config == GLOBAL_MEMORY else None)
     lib = library()
     with torch.cuda.device(xyz.device):
         err = lib.lib.pcdreg_fps(
             xyz.data_ptr(), None if weights is None else weights.data_ptr(),
-            out.data_ptr(), B, N, nsample, config,
+            None if dist is None else dist.data_ptr(), out.data_ptr(), B, N, nsample, config,
             torch.cuda.current_stream(xyz.device).cuda_stream)
     lib.check(err, 'pcdreg_fps')
     return out
@@ -120,6 +130,8 @@ def probe(xyz: torch.Tensor, nsample: int,
     configuration; its output is not FPS indices."""
     from .build import library
     config = _check(xyz, None, nsample, config)
+    if config == GLOBAL_MEMORY:
+        raise ValueError('the fps probe has no global-memory variant')
     B, N, _ = xyz.shape
     out = torch.empty((B, nsample), dtype=torch.int32, device=xyz.device)
     lib = library()

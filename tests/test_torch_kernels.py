@@ -131,15 +131,19 @@ class TestFPSConfigs:
         assert rows == kfps.CONFIGS
 
     def test_every_n_maps_to_a_configuration_that_holds_it(self):
-        assert kfps.MAX_POINTS >= 65536
-        caps = np.array([kfps.capacity(c) for c in range(len(kfps.CONFIGS))])
-        chosen = np.array([kfps.choose_config(n) for n in range(1, kfps.MAX_POINTS + 1)])
-        assert (caps[chosen] >= np.arange(1, kfps.MAX_POINTS + 1)).all()
+        top = kfps.BANDS[-1][0]
+        assert top >= 65536
+        caps = np.array([kfps.capacity(c) for c in range(len(kfps.CONFIGS) + 1)])
+        chosen = np.array([kfps.choose_config(n) for n in range(1, top + 1)])
+        assert (chosen < len(kfps.CONFIGS)).all()
+        assert (caps[chosen] >= np.arange(1, top + 1)).all()
         for threads, ppt, cluster in kfps.CONFIGS:
             assert threads % 32 == 0 and threads <= 1024
             assert cluster in (1, 2, 4, 8)
-        with pytest.raises(ValueError, match=str(kfps.MAX_POINTS)):
-            kfps.choose_config(kfps.MAX_POINTS + 1)
+        # N above the bands maps to the global-memory variant, which holds any N
+        for n in (top + 1, 131072, 1 << 20, kfps.MAX_INT32):
+            assert kfps.choose_config(n) == kfps.GLOBAL_MEMORY
+            assert kfps.capacity(kfps.choose_config(n)) >= n
 
 
 class TestFPSWrappers:
@@ -172,9 +176,9 @@ class TestFPSWrappers:
             m = 65
         elif bad == 'weights':
             w = torch.ones(2, 63)
-        elif bad == 'cap':
-            xyz = torch.zeros(1, kfps.MAX_POINTS + 1, 3)
-            match = str(kfps.MAX_POINTS)
+        elif bad == 'cap':   # past the table and the global-memory variant
+            config = kfps.GLOBAL_MEMORY + 1
+            match = 'configuration'
         else:
             config = kfps.CONFIGS.index((32, 16, 1))   # holds 512 points
             xyz = torch.zeros(1, 513, 3)
@@ -187,8 +191,18 @@ def _qkv(seed, shape):
     return [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
 
 
+# [R, H, K, d] the kernel once refused: K=1024 d=32, d=128 at K=256, d=24,
+# d=256 (split over blocks), a ragged K
+OPENED_SHAPES = [(1, 1, 1024, 32), (1, 2, 256, 128), (2, 3, 64, 24),
+                 (1, 1, 64, 256), (2, 2, 100, 16)]
+# the forward's nine (K, d) per tower, R = 4B at B = 1 and 8
+PRODUCTION_SHAPES = [(4 * b, h, kk, c // h) for b in (1, 8)
+                     for kk, c in ((256, 64), (128, 128), (64, 256)) for h in (2, 4, 8)]
+
+
 class TestAttentionReference:
-    @pytest.mark.parametrize('shape', [(3, 2, 16, 8), (2, 4, 32, 16), (2, 2, 64, 32)])
+    @pytest.mark.parametrize('shape', [(3, 2, 16, 8), (2, 4, 32, 16), (2, 2, 64, 32),
+                                       *OPENED_SHAPES])
     def test_matches_jax_dense_reference_f32(self, shape):
         q, k, v = _qkv(0, shape)
         scale = shape[-1] ** -0.5
@@ -199,6 +213,15 @@ class TestAttentionReference:
     def test_matches_pallas_interpret_f32(self):
         q, k, v = _qkv(1, (2, 2, 32, 16))
         scale = 16 ** -0.5
+        with pltpu.force_tpu_interpret_mode():
+            ref = np.asarray(jattn.patch_attention(*map(jnp.asarray, (q, k, v)), scale))
+        got = kattn.patch_attention_reference(*map(torch.from_numpy, (q, k, v)), scale)
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)
+
+    def test_matches_pallas_interpret_f32_where_jax_takes_pallas(self):
+        # K = 512 (_PALLAS_MIN_PATCH): the JAX model's Pallas route
+        q, k, v = _qkv(4, (1, 1, 512, 32))
+        scale = 32 ** -0.5
         with pltpu.force_tpu_interpret_mode():
             ref = np.asarray(jattn.patch_attention(*map(jnp.asarray, (q, k, v)), scale))
         got = kattn.patch_attention_reference(*map(torch.from_numpy, (q, k, v)), scale)
@@ -220,16 +243,62 @@ class TestAttentionReference:
         n = kattn.patch_attention.launches
         assert torch.equal(kattn.patch_attention(q, k, v, 0.5),
                            kattn.patch_attention_reference(q, k, v, 0.5))
+        buf = torch.empty(2, 16, 2, 8)   # an [R, K, H, d] buffer, written through a view
+        got = kattn.patch_attention(q, k, v, 0.5, out=buf.transpose(1, 2))
+        assert got.data_ptr() == buf.data_ptr()
+        assert torch.equal(buf.transpose(1, 2), kattn.patch_attention_reference(q, k, v, 0.5))
         assert kattn.patch_attention.launches == n
 
-    @pytest.mark.parametrize('bad', ['head_dim', 'dtype', 'mismatch', 'smem'])
-    def test_launch_validates_before_building(self, bad):
-        shape = {'head_dim': (1, 1, 16, 12), 'smem': (1, 1, 512, 128)}.get(bad, (1, 1, 16, 8))
-        q = torch.zeros(shape)
+    @pytest.mark.parametrize('bad', ['rank', 'dtype', 'mismatch', 'last_dim'])
+    def test_launch_validates_before_building(self, bad, monkeypatch):
+        def no_build():
+            raise AssertionError('built before validating')
+        monkeypatch.setattr(kbuild, 'library', no_build)
+        q = torch.zeros(1, 1, 16, 8)
         k = v = q
-        if bad == 'dtype':
+        if bad == 'rank':
+            q = k = v = torch.zeros(1, 16, 8)
+        elif bad == 'dtype':
             q = k = v = q.half()
         elif bad == 'mismatch':
             k = torch.zeros(1, 1, 16, 16)
+        else:   # every other element of the last dim
+            k = torch.zeros(1, 1, 16, 16)[..., ::2]
         with pytest.raises(ValueError):
             kattn._launch(q, k, v, 1.0)
+
+
+class TestAttentionPlan:
+    @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize('shape', OPENED_SHAPES + PRODUCTION_SHAPES
+                             + [(1, 1, 1, 1), (3, 1, 17, 129), (32, 8, 128, 128)])
+    def test_tiles_cover_k_and_d(self, shape, dtype):
+        R, H, K, d = shape
+        p = kattn.plan(R, H, K, d, dtype)
+        tiles = p.grid[0] // (R * H)
+        assert p.grid[0] == R * H * tiles and p.bm * (tiles - 1) < K <= p.bm * tiles
+        assert p.bm in kattn.BLOCK_ROWS and p.threads == 2 * p.bm * p.split <= 256
+        widths = (8, 16, 32, 64, 128) if dtype == torch.float32 else (16, 32, 64, 128)
+        assert (p.slices > 1) == (d > kattn.WIDE)   # the d-split exactly when d > 128
+        assert p.grid[1] == p.slices and p.slices * p.dp >= d
+        assert (p.slices - 1) * p.dp < d
+        assert p.dp == min(w for w in widths if w >= min(d, kattn.WIDE))   # the least padding
+        assert p.bn % 16 == 0 and p.smem <= 232448
+
+    def test_small_batch_spreads_over_warps_and_large_batch_does_not_over_split(self):
+        for R, H, K, d in PRODUCTION_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                p = kattn.plan(R, H, K, d, dtype)
+                if R == 4 and dtype == torch.float32:   # one pair: keys split over warps
+                    assert p.grid[0] >= 64 or p.split == kattn.SPLIT
+                else:                                   # B = 8, bf16: whole rows per warp
+                    assert p.split == 1 and p.bm >= 64
+                assert p.bm <= max(64, K)
+
+    def test_blocks_of_128_rows_follow_the_sm_count(self):
+        # B=8, K=256, H=2: 128 blocks of 128 rows fill 3 of every 4 of the
+        # H100's 132 SMs, not of 200; the sweep reads (128, 1) faster there
+        shape = (32, 2, 256, 32, torch.float32)
+        assert (kattn.plan(*shape).bm, kattn.plan(*shape).split) == (128, 1)
+        assert kattn.plan(*shape, sms=kattn.SMS) == kattn.plan(*shape)
+        assert (kattn.plan(*shape, sms=200).bm, kattn.plan(*shape, sms=200).split) == (64, 1)

@@ -154,6 +154,23 @@ class TestPTv3:
         v = _variables(jm, x)
         _compare(jm.apply(v, x), _port(ptv3.PTv3Mlp(16), v)(torch.from_numpy(x)), 1e-5)
 
+    def test_patch_attention_takes_strided_views(self):
+        # the module hands the kernel views of the qkv projection and writes
+        # into an [R, K, H, d] buffer; the result must equal the path through
+        # contiguous copies, and still match the JAX module
+        from pcd_reg_hregnet_torch.ops.kernels.attention import patch_attention
+        x = _rand(5, (2, 48, 24))
+        jm = jptv3.PatchAttention(24, 2, 16)
+        v = _variables(jm, x)
+        tm = _port(ptv3.PatchAttention(24, 2, 16), v)
+        with torch.no_grad():
+            got = tm(torch.from_numpy(x))
+            qkv = tm.Dense_0(torch.from_numpy(x)).reshape(6, 16, 3, 2, 12)
+            q, k, w = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+            out = patch_attention(q, k, w, 12 ** -0.5).transpose(1, 2).reshape(2, 48, 24)
+            assert torch.equal(got, tm.Dense_1(out))
+        _compare(jm.apply(v, x), got, 1e-5)
+
     @pytest.mark.parametrize('cpe', ['knn', 'curve', 'none'])
     def test_block(self, cpe):
         x = _rand(3, (2, 32, 16))
@@ -173,3 +190,12 @@ class TestPTv3:
         tm = _port(ptv3.PointTransformerEncoder(8, 16, (1, 1), (2, 4), 16, cpe='knn'), v)
         _compare(jm.apply(v, xyz, feat), tm(torch.from_numpy(xyz), torch.from_numpy(feat)),
                  2e-4)
+
+
+class TestUnportedConfig:
+    @pytest.mark.parametrize('override', [{'compute_dtype': 'bfloat16'},
+                                          {'seq_axis': 'seq'}])
+    def test_build_refuses_values_the_port_does_not_implement(self, override):
+        from pcd_reg_hregnet_torch.models import zoo
+        with pytest.raises(NotImplementedError, match=next(iter(override))):
+            zoo.build('model_v6', device='cpu', levels=LEVELS, **SMALL, **override)
