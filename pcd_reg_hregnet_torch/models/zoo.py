@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from pathlib import Path
 
 import torch
 from torch import nn
@@ -46,14 +47,26 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build(name: str, *, device: str | torch.device = 'cuda', seed: int = 0,
-          **overrides) -> RegistrationModel:
-    """Build a preset in eval mode on `device` with seeded random weights.
+          weights: str | Path | None = None, **overrides) -> RegistrationModel:
+    """Build a model in eval mode on `device`.
 
-    Raises without a card unless ``device='cpu'``.  Load trained weights
-    with ``model.load_state_dict(utils.convert.from_flax(variables))``.
+    Without `weights`: the preset with seeded random weights.  With
+    `weights` (an exported checkpoint, `utils/checkpoint.py`): the model
+    configuration recorded in the checkpoint, `overrides` on top, loaded
+    with ``strict=True``; the checkpoint's `DataConfig` is kept as
+    `model.data_cfg`.  Raises without a card unless ``device='cpu'``.
     """
     dev = resolve_device(device)
-    model = RegistrationModel(model_config(name, **overrides))
-    init_weights(model, torch.Generator().manual_seed(seed))
+    if weights is None:
+        model = RegistrationModel(model_config(name, **overrides))
+        init_weights(model, torch.Generator().manual_seed(seed))
+    else:
+        from ..utils import checkpoint
+        cfg, state = checkpoint.load(weights)
+        if cfg.model.name != name:
+            raise ValueError(f'{weights} holds {cfg.model.name!r}, not {name!r}')
+        model = RegistrationModel(dataclasses.replace(cfg.model, **overrides))
+        model.load_state_dict(state, strict=True)
+        model.data_cfg = cfg.data
     return model.to(dev).eval()
 
