@@ -29,7 +29,11 @@ Phases, each printing its own line with seconds:
    K3 and SDPA are timed as calls issued back to back (the JSON line's
    figures, as for FPS) and as device time (20 calls captured in a CUDA
    graph and replayed: `pcd_reg_hregnet_torch/time_attention.py`), which
-   the bound's share is taken of;
+   the bound's share is taken of.  The attention backward (K3b) against its
+   plain version within `ATTN_BWD_TOL` of each gradient's largest value, at
+   every (K, d) of the train step at B=8 and B=1 and every `ATTN_OPENED`
+   shape, on strided views, timed back to back and as device time beside
+   its bound and SDPA's backward;
 4. serve: `model_v6` at full width (8096-point clouds, 1024/512/256
    keypoints, PTv3 depths (2,2,2)) with the trained flagship weights
    (`port_assets/r5_v11_knn_best_rre.npz`, the JAX package's `reg_v11`
@@ -53,13 +57,28 @@ Phases, each printing its own line with seconds:
    last bits of sigma flips ~12 pairs between any two correct
    implementations); each layer's `rre_deg` within
    0.005 deg, `rte_m` within 1e-3 m and `recall` within 2/256 of the JAX-CPU
-   summary.  Prints the eval's seconds and pairs/s (host clock, indicative).
+   summary.  Prints the eval's seconds and pairs/s (host clock, indicative);
+6. train: `train.loop.fit` of `reg_v11` from the trained flagship at full
+   width (B=8 x 8096 points, the flagship's OneCycle schedule) on the
+   synthetic train split for `TRAIN_STEPS` steps, with a short validation
+   and its checkpoints: launches exactly K1 2, K2 4, K3 36 and K3b 36 per
+   step (plus the validation's forwards), loss and gradient norm finite at
+   every step; then, with `train.loop.make_train_step`: the launches of
+   single steps, TF32 off in the backward (read by a gradient hook with the
+   process default set to True), the median synced step time, peak memory
+   and device ops per step (torch.profiler); one step with the kernels
+   against one with the plain versions of all four on the same batch and
+   weights (keypoints identical at every level, else the next batch; loss
+   within `TRAIN_LOSS_TOL`, each gradient within `TRAIN_GRAD_TOL` of the
+   global norm); and a checkpoint round trip whose next step equals the
+   step without it.
 
 Ends with a JSON line of per-kernel numbers, the card's name and power
 limit, the total seconds, and the result line.  In the JSON line, `ms`,
 `plain_ms`, `bound_ms` and `library_ms` add up the kernel's calls in one
-B=8 pair-forward (both towers); `launches` is the sum of the counts over
-the main paths of phases 4 and 5, each counted from 0.  Exits non-zero, with no
+B=8 pair-forward (both towers; for K3b, the backward of one B=8 train
+step); `launches` is the sum of the counts over the main paths of phases
+4, 5 and 6, each counted from 0.  Exits non-zero, with no
 result line, when there is no CUDA device or any phase fails.
 """
 from __future__ import annotations
@@ -110,6 +129,15 @@ EVAL_REFERENCE = 'port_assets/v11_r5_eval_jax_cpu.json'
 # tools/compare_evals.py).  The coarse limit is those 12 plus the 2 the
 # finer layers allow; a defect flips many more, and moves the summary.
 EVAL_MAX_OUTSIDE = {'layer_0': 14, 'layer_1': 2, 'layer_2': 2, 'layer_3': 2}
+# K3b against its plain backward: max |err| of each of dq, dk, dv over that
+# tensor's max |value| (f32 sums in another order; the forward's 1e-5 is
+# absolute on outputs of order 1, gradients reach ~1e2 at K = 256)
+ATTN_BWD_TOL = 1e-4
+TRAIN_STEPS = 20        # optimizer steps of the counted `fit` (reg_v11 from the flagship)
+TRAIN_VAL_PAIRS = 16    # its validation: the first pairs of the val split
+TRAIN_TIMED = 8         # synced steps timed after it
+TRAIN_LOSS_TOL = 1e-4   # kernels vs plain versions, one step: loss, relative
+TRAIN_GRAD_TOL = 1e-3   # and each gradient, of the global gradient norm
 EVAL_RRE_TOL = 0.005            # deg, each layer's summary
 EVAL_RTE_TOL = 1e-3             # m
 EVAL_RECALL_TOL = 2 / 256
@@ -459,11 +487,104 @@ def check_attention(torch, lib, kattn, gen, t0) -> dict:
             'max_abs_err': max_err, 'bound_by': max(by, key=by.get), **tot}
 
 
+def attn_bwd_bounds(R, H, K, d):
+    """(bytes, operations) times in ms of one K3b call: q, k, v, o and g read
+    once and dq, dk, dv written once over HBM (f32); the five K*K*d products
+    (s, recomputed since p is not an input, then dp, dv, dq, dk) as f32 FMA
+    on the CUDA cores, which is what the kernel runs them on."""
+    nbytes = 8 * R * H * K * d * 4
+    flops = 10 * R * H * K * K * d
+    return nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOPS_S * 1e3
+
+
+def check_attention_backward(torch, kattn, gen, t0) -> dict:
+    """K3b against the plain backward (full f32) at every (K, d) of the
+    train step at B=8 and B=1 and at every `ATTN_OPENED` shape, on fresh
+    strided views (q, k, v of a [R, K, 3, H, d] projection, g of an
+    [R, K, H, d] gradient, dq, dk, dv into one [R, K, 3, H, d] buffer);
+    timed per train step (36 calls at B=8) back to back and as device time,
+    beside its bound and the backward of SDPA on the same f32 shapes."""
+    from pcd_reg_hregnet_torch.time_attention import call_ms, device_ms, shapes
+    F = torch.nn.functional
+    tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'library_ms': 0.0}
+    dev_step = 0.0
+    max_err = 0.0
+    by = {'bytes': 0.0, 'operations': 0.0}
+
+    def case(R, H, K, d):
+        qkv = torch.randn((R, K, 3, H, d), generator=gen).cuda()
+        q, k, v = kattn.unpack_qkv(qkv)
+        o = kattn.patch_attention(q, k, v, d ** -0.5)
+        g = torch.randn((R, K, H, d), generator=gen).cuda().transpose(1, 2)
+        buf = torch.empty_like(qkv)
+        got = kattn.patch_attention_backward(q, k, v, o, g, d ** -0.5,
+                                             out=kattn.unpack_qkv(buf))
+        ref = kattn.patch_attention_backward_reference(q, k, v, g, d ** -0.5)
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(got, ref)]
+        if not max(errs) <= ATTN_BWD_TOL:
+            raise AssertionError(f'patch_attention_backward {(R, H, K, d)}: max |err| / max '
+                                 f'|value| of dq, dk, dv {errs} > {ATTN_BWD_TOL}')
+        return (q, k, v, o, g), max(errs)
+
+    for B in (BATCH, 1):
+        for R, H, K, d in shapes(B):
+            (q, k, v, o, g), err = case(R, H, K, d)
+            scale = d ** -0.5
+            ms = call_ms(lambda: kattn.patch_attention_backward(q, k, v, o, g, scale), 20)
+            dev = device_ms(lambda: kattn.patch_attention_backward(q, k, v, o, g, scale), 20)
+            plain_ms = call_ms(lambda: kattn.patch_attention_backward_reference(
+                q, k, v, g, scale), 20)
+            qs, ks, vs = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
+            gs = g.contiguous()
+            lib_ms = call_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), gs,
+                                                         retain_graph=True), 20)
+            b_bytes, b_ops = attn_bwd_bounds(R, H, K, d)
+            bound = max(b_bytes, b_ops)
+            kind = 'bytes' if b_bytes >= b_ops else 'operations'
+            log('kernels', t0, f'patch_attention_backward B={B} R={R} H={H} K={K} d={d} f32: '
+                f'max|err|/max|value| {err:.2e}; back to back: kernel {ms * 1e3:.2f} us, '
+                f'plain {plain_ms * 1e3:.2f} us, sdpa backward {lib_ms * 1e3:.2f} us; device '
+                f'time: kernel {dev * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({kind}), share '
+                f'of bound {bound / dev:.1%}')
+            if B == BATCH:   # per train step: two blocks per stage, two towers
+                n = ATTN_DEPTH * TOWERS
+                tot['ms'] += n * ms
+                tot['plain_ms'] += n * plain_ms
+                tot['library_ms'] += n * lib_ms
+                tot['bound_ms'] += n * bound
+                dev_step += n * dev
+                max_err = max(max_err, err)
+                by[kind] += bound
+    log('kernels', t0, f'patch_attention_backward per B={BATCH} train step: back to back: '
+        f'kernel {tot["ms"]:.4f} ms, sdpa backward {tot["library_ms"]:.4f} ms, plain '
+        f'{tot["plain_ms"]:.4f} ms; device time: kernel {dev_step:.4f} ms; bound '
+        f'{tot["bound_ms"]:.4f} ms (f32 CUDA cores)')
+    for shape in ATTN_OPENED:
+        _, err = case(*shape)
+        log('kernels', t0, f'patch_attention_backward {shape} f32: max|err|/max|value| '
+            f'{err:.2e}')
+    return {'name': 'patch_attention_bwd', 'route': 'cuda',
+            'source': 'pcd_reg_hregnet_torch/csrc/attention_bwd.cu',
+            'replaces': 'pcd_reg_hregnet_tpu/ops/pallas/attention.py:93',
+            'max_abs_err': max_err, 'bound_by': max(by, key=by.get), **tot}
+
+
 def per_forward_launches(cfg) -> dict:
     """Each kernel's launches in one pair-forward (both towers)."""
     return {'fps': TOWERS,
             'weighted_fps': TOWERS * (len(cfg.levels) - 1),
-            'patch_attention': TOWERS * len(cfg.levels) * sum(cfg.ptv3_depths)}
+            'patch_attention': TOWERS * len(cfg.levels) * sum(cfg.ptv3_depths),
+            'patch_attention_bwd': 0}
+
+
+def per_step_launches(cfg) -> dict:
+    """Each kernel's launches in one train step: a pair-forward and the
+    backward of each attention."""
+    per = per_forward_launches(cfg)
+    return dict(per, patch_attention_bwd=per['patch_attention'])
 
 
 def kernel_wrappers() -> dict:
@@ -471,7 +592,8 @@ def kernel_wrappers() -> dict:
     from pcd_reg_hregnet_torch.ops.kernels import fps as kfps
     return {'fps': kfps.farthest_point_sample,
             'weighted_fps': kfps.weighted_farthest_point_sample,
-            'patch_attention': kattn.patch_attention}
+            'patch_attention': kattn.patch_attention,
+            'patch_attention_bwd': kattn.patch_attention_backward}
 
 
 def check_launches(launches: dict, per_forward: dict, forwards: int) -> None:
@@ -728,6 +850,251 @@ def eval_phase(torch, t0, smi: str) -> dict:
     return launches
 
 
+class PlainKernels:
+    """Inside the block, the model's four kernel calls (K1, K2, K3, K3b) go to
+    their plain versions on the card too: `ops.sampling`'s FPS entries and
+    the PTv3 attention's autograd Function are swapped for the plain
+    `fps_reference`, `patch_attention_reference` and
+    `patch_attention_backward_reference`, and put back on exit.  Only this
+    script does this, to hold a train step against its plain self."""
+
+    def __init__(self, torch):
+        from pcd_reg_hregnet_torch.ops.kernels import attention as kattn
+        from pcd_reg_hregnet_torch.ops.kernels import fps as kfps
+
+        class PlainAttention(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, qkv, scale):
+                ctx.save_for_backward(qkv)
+                ctx.scale = scale
+                out = kattn.patch_attention_reference(*kattn.unpack_qkv(qkv), scale)
+                return out.transpose(1, 2).contiguous()
+
+            @staticmethod
+            def backward(ctx, grad):
+                qkv, = ctx.saved_tensors
+                grads = kattn.patch_attention_backward_reference(
+                    *kattn.unpack_qkv(qkv), grad.transpose(1, 2), ctx.scale)
+                dqkv = torch.empty_like(qkv)
+                for dst, src in zip(kattn.unpack_qkv(dqkv), grads):
+                    dst.copy_(src)
+                return dqkv, None
+
+        self.swaps = {'fps': lambda xyz, m: kfps.fps_reference(xyz, None, m),
+                      'wfps': lambda xyz, w, m: kfps.fps_reference(xyz, w, m),
+                      'attn': PlainAttention}
+
+    def __enter__(self):
+        from pcd_reg_hregnet_torch.models import ptv3
+        from pcd_reg_hregnet_torch.ops import sampling
+        self.saved = (sampling.farthest_point_sample, sampling.weighted_farthest_point_sample,
+                      ptv3.PatchAttentionFunction)
+        sampling.farthest_point_sample = self.swaps['fps']
+        sampling.weighted_farthest_point_sample = self.swaps['wfps']
+        ptv3.PatchAttentionFunction = self.swaps['attn']
+        return self
+
+    def __exit__(self, *exc):
+        from pcd_reg_hregnet_torch.models import ptv3
+        from pcd_reg_hregnet_torch.ops import sampling
+        (sampling.farthest_point_sample, sampling.weighted_farthest_point_sample,
+         ptv3.PatchAttentionFunction) = self.saved
+
+
+def _keypoint_hook(model, store: dict):
+    """Record each tower's keypoints of every level at the model's forward."""
+    def hook(module, args, ret):
+        store.clear()
+        store.update({f'{side}_{lvl}': ret[f'{side}_feats'][f'xyz_{lvl}'].detach().clone()
+                      for side in ('src', 'dst') for lvl in (1, 2, 3)})
+    return model.register_forward_hook(hook)
+
+
+def profile_window(torch, fn, reps: int):
+    """(host ms, device busy ms, device ops, [(device ms, launches, kernel
+    name)] largest first) per `fn()` over `reps` calls under
+    torch.profiler, after the caller's warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pcd_reg_hregnet_torch.profile_serve import _device_events, _union_us
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) / reps * 1e3
+    dev = _device_events(prof)
+    busy_ms = _union_us((e.time_range.start, e.time_range.end) for e in dev) / 1e3 / reps
+    per_kernel: dict = {}
+    for e in dev:
+        per_kernel.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+    top = sorted(((sum(t) / 1e3 / reps, len(t) // reps, name) for name, t in per_kernel.items()),
+                 reverse=True)
+    return host_ms, busy_ms, len(dev) / reps, top
+
+
+def train_phase(torch, t0, smi: str) -> dict:
+    """The reg_v11 train step at full width on the synthetic train split,
+    from the trained flagship: `train.loop.fit` for `TRAIN_STEPS` steps
+    (counted), then per-step launches, the TF32 flags during backward, step
+    time, peak memory and device ops, one step against the plain versions
+    of all four kernels, and a checkpoint round trip."""
+    import tempfile
+    from pathlib import Path
+
+    from pcd_reg_hregnet_torch.data import batch_iterator, load_dataset
+    from pcd_reg_hregnet_torch.train import loop
+    from pcd_reg_hregnet_torch.utils import checkpoint
+
+    cfg = checkpoint.load_config(checkpoint.FLAGSHIP)   # reg_v11 as the flagship was trained
+    bs = cfg.data.batch_size
+    per_step = per_step_launches(cfg.model)
+    per_forward = per_forward_launches(cfg.model)
+    wrappers = kernel_wrappers()
+    train_ds = load_dataset(cfg.data, 'train')
+    val_ds = load_dataset(cfg.data, 'val', length=TRAIN_VAL_PAIRS)
+    steps_per_epoch = len(train_ds) // bs
+
+    # --- the main path, counted -------------------------------------------
+    for w in wrappers.values():
+        w.launches = 0
+    with tempfile.TemporaryDirectory() as log_dir:
+        t = time.perf_counter()
+        state, val = loop.fit(cfg, log_dir=log_dir, max_steps=TRAIN_STEPS,
+                              datasets=(train_ds, val_ds), init=str(checkpoint.FLAGSHIP),
+                              device='cuda')
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        launches = {k: w.launches for k, w in wrappers.items()}
+        with open(Path(log_dir) / 'metrics.jsonl') as f:
+            records = [json.loads(line) for line in f]
+        saved = sorted(p.name for p in (Path(log_dir) / cfg.train.ckpt_dir).iterdir())
+    val_forwards = -(-TRAIN_VAL_PAIRS // bs)
+    log('train', t0, f'fit(reg_v11, B={bs} x {cfg.data.pcd_min_samples} points, from '
+        f'{checkpoint.FLAGSHIP.name}, {TRAIN_STEPS} steps of the {cfg.train.epochs}-epoch '
+        f'OneCycle schedule, val on {TRAIN_VAL_PAIRS} pairs) in {fit_s:.2f} s on {smi}; '
+        f'launches {launches}; checkpoints {saved}')
+    for k in per_step:
+        want = per_step[k] * TRAIN_STEPS + per_forward[k] * val_forwards
+        if launches[k] != want:
+            raise AssertionError(f'{k}: {launches[k]} launches in {TRAIN_STEPS} train steps and '
+                                 f'{val_forwards} val forwards, expected {want}')
+    steps = [r for r in records if r['split'] == 'train']
+    if [r['step'] for r in steps] != list(range(1, TRAIN_STEPS + 1)):
+        raise AssertionError(f'logged train steps {[r["step"] for r in steps]}')
+    for r in steps:
+        if not (np.isfinite(r['loss']) and np.isfinite(r['grad_norm'])):
+            raise AssertionError(f'step {r["step"]}: loss {r["loss"]}, grad norm {r["grad_norm"]}')
+    log('train', t0, 'loss per step: ' + ', '.join(f'{r["loss"]:.4f}' for r in steps))
+    log('train', t0, 'grad norm per step: ' + ', '.join(f'{r["grad_norm"]:.3f}' for r in steps))
+    log('train', t0, f'val after {TRAIN_STEPS} steps: loss {val["loss"]:.5f}, rre '
+        f'{val["rre"]:.5f} deg, rte {val["rte"]:.5f} m; per step exactly {per_step}')
+    if set(saved) != {'last', *(f'best_{m}' for m in loop.BEST_METRICS)}:
+        raise AssertionError(f'checkpoints written: {saved}')
+
+    # --- per-step launches, TF32 off in the backward, time, memory -----------
+    it = batch_iterator(train_ds, bs, shuffle=True, seed=cfg.train.seed, epoch=0)
+    batches = [loop.to_device(next(it), torch.device('cuda')) for _ in range(TRAIN_TIMED + 4)]
+    state = loop.create_state(cfg, steps_per_epoch, device='cuda', init=checkpoint.FLAGSHIP)
+    step = loop.make_train_step()
+    flags = []
+    param = state.objective.model.feature_extraction.ptv3_1.PTv3Block_0.PatchAttention_0.Dense_0
+    handle = param.weight.register_hook(lambda g: flags.append(
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)))
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        for batch in batches[:2]:
+            for w in wrappers.values():
+                w.launches = 0
+            step(state, batch)
+            got = {k: w.launches for k, w in wrappers.items()}
+            if got != per_step:
+                raise AssertionError(f'launches in one train step {got}, expected {per_step}')
+    finally:
+        handle.remove()
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    if not flags or any(f != (False, False) for f in flags):
+        raise AssertionError(f'TF32 flags (matmul, cudnn) during backward: {flags}')
+    log('train', t0, f'launches per step {per_step}; TF32 off in both backward passes '
+        f'(matmul, cudnn) = {flags} with the process default set to True')
+    times = []
+    for batch in batches[2:2 + TRAIN_TIMED]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batches[-2])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    host_ms, busy_ms, ops, top = profile_window(torch, lambda: step(state, batches[-1]), 2)
+    log('train', t0, f'step B={bs}: median {np.median(times):.1f} ms (min {min(times):.1f}, max '
+        f'{max(times):.1f}; {TRAIN_TIMED} synced steps, host clock) on {smi}; peak memory '
+        f'{peak / 2**30:.2f} GiB (max_memory_allocated); profiler, 2 steps: host '
+        f'{host_ms:.1f} ms/step, device busy {busy_ms:.1f} ms/step ({busy_ms / host_ms:.1%}, '
+        f'idle {1 - busy_ms / host_ms:.1%}), {ops:.0f} device ops/step')
+    for ms, n, name in top[:12]:
+        print(f'  {ms:8.3f} ms/step {n:6d}x  {name[:100]}')
+
+    # --- kernels against their plain versions, one step, same weights -------
+    differing = 0
+    for i, batch in enumerate(batches[:4]):
+        runs = []
+        for plain in (False, True):
+            st = loop.create_state(cfg, steps_per_epoch, device='cuda', init=checkpoint.FLAGSHIP)
+            kps = {}
+            hook = _keypoint_hook(st.objective.model, kps)
+            if plain:
+                with PlainKernels(torch):
+                    m = step(st, batch)
+            else:
+                m = step(st, batch)
+            hook.remove()
+            runs.append((st, m, dict(kps), {n: p.grad.clone() for n, p in
+                                            st.objective.named_parameters() if p.grad is not None}))
+        (sk, mk, kk, gk), (_, mp, kp, gp) = runs
+        same = {key: bool(torch.equal(kk[key], kp[key])) for key in kk}
+        if not all(same.values()):
+            pairs = {key: sorted(set(torch.nonzero((kk[key] != kp[key]).any(-1))[:, 0].tolist()))
+                     for key, ok in same.items() if not ok}
+            differing += 1
+            log('train', t0, f'batch {i}: K2 keypoints differ from the plain version\'s at '
+                f'(tower_level: pairs) {pairs}: a weighted-FPS near-tie; the next batch decides')
+            if differing == 2:
+                raise AssertionError('two batches in a row with keypoints that differ between '
+                                     'the kernels and the plain versions')
+            continue
+        loss_k, loss_p = float(mk['loss']), float(mp['loss'])
+        norm = float(mk['grad_norm'])
+        worst = max((float((gk[n] - gp[n]).abs().max()), n) for n in gk)
+        log('train', t0, f'batch {i}: kernels vs plain versions, one step: keypoints identical '
+            f'at every level of both towers; loss {loss_k:.6f} vs {loss_p:.6f} (rel '
+            f'{abs(loss_k - loss_p) / abs(loss_p):.2e}); max |dgrad| {worst[0]:.3e} '
+            f'({worst[1]}) = {worst[0] / norm:.2e} of the global norm {norm:.3f}')
+        if set(gk) != set(gp) or not abs(loss_k - loss_p) <= TRAIN_LOSS_TOL * abs(loss_p) \
+                or not worst[0] <= TRAIN_GRAD_TOL * norm:
+            raise AssertionError(f'kernels vs plain: loss {loss_k} vs {loss_p}, max |dgrad| '
+                                 f'{worst} against the global norm {norm}')
+        break
+
+    # --- checkpoint round trip ----------------------------------------------
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save_train(Path(d) / 'ck', sk, cfg)
+        other = loop.create_state(cfg, steps_per_epoch, device='cuda')
+        checkpoint.restore_train(Path(d) / 'ck', other)
+    m1, m2 = step(sk, batches[5]), step(other, batches[5])
+    if (other.step, float(m2['loss'])) != (sk.step, float(m1['loss'])) or \
+            abs(float(m1['grad_norm']) - float(m2['grad_norm'])) > 1e-4 * float(m1['grad_norm']):
+        raise AssertionError(f'after a checkpoint round trip: step {other.step} vs {sk.step}, '
+                             f'loss {float(m2["loss"])} vs {float(m1["loss"])}, grad norm '
+                             f'{float(m2["grad_norm"])} vs {float(m1["grad_norm"])}')
+    log('train', t0, f'checkpoint round trip: the next step equal (loss {float(m1["loss"]):.6f}, '
+        f'step {sk.step})')
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     import torch
@@ -756,11 +1123,11 @@ def main() -> int:
     with fp32_numerics():   # the plain versions in full f32, as in the model's forward
         entries = check_fps(torch, kfps, t0)
         entries.append(check_attention(torch, lib, kattn, gen, t0))
+        entries.append(check_attention_backward(torch, kattn, gen, t0))
 
-    launches = serve_phase(torch, t0)
-    eval_launches = eval_phase(torch, t0, smi)
+    counted = [serve_phase(torch, t0), eval_phase(torch, t0, smi), train_phase(torch, t0, smi)]
     for e in entries:
-        e['launches'] = launches[e['name']] + eval_launches[e['name']]
+        e['launches'] = sum(c[e['name']] for c in counted)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
     print(json.dumps({'kernels': [{k: e[k] for k in keys} for e in entries]}))

@@ -25,9 +25,13 @@ def fp32_numerics():
     """Full-f32 matmuls and convolutions inside the block: no TF32.
 
     cuDNN defaults to TF32 for f32 convolutions (the PTv3 depthwise conv);
-    geometry (kNN distances, Kabsch, SE(3)) must stay full f32.  The
-    model's forward runs under this; the caller's settings come back on
-    exit, so nothing else in the process is changed.
+    geometry (kNN distances, Kabsch, SE(3)) must stay full f32, as the JAX
+    package's ``precision='highest'`` keeps it.  The model's forward runs
+    under this, and so does the whole train step
+    (`train/loop.py::make_train_step`): forward, `loss.backward()` (whose
+    convolution and matmul gradients read these flags when they run, after
+    the forward's block has exited) and the optimizer step.  The caller's
+    settings come back on exit, so nothing else in the process is changed.
     """
     prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False

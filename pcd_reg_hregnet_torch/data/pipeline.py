@@ -7,7 +7,10 @@ Decalibration protocol: val/test use a persisted per-index twist table
 source, and ground truth is ``inverse(igt)``.  The JAX package draws its
 tables from a JAX PRNG, which the port cannot regenerate: it reads the
 tables that `tools/export_torch_weights.py` wrote (the JAX
-`perturbation_table` CSV format) and raises where one is missing.
+`perturbation_table` CSV format) and raises where one is missing.  The
+train split draws fresh twists every epoch (`PairDataset.set_epoch`) from a
+numpy generator seeded by (seed, epoch): the JAX package's distribution,
+not its numbers (JAX's threefry stream is not reproduced).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 
 from ..core.config import ASSETS_DIR, DataConfig
 from ..geometry import se3
+from ..geometry.perturbations import sample_twist
 from . import native
 
 
@@ -96,9 +100,9 @@ class PairDataset:
     A *source* provides `__len__` and `load_pair(index) -> dict` with
     `pcd_left`, `pcd_right` ([Ni, 3], already in the left frame), optional
     intensities, and `extrinsic` [4, 4].  This adds the native range
-    filter + fixed-N resample and the decalibration protocol.  The train
-    split's per-epoch twists are not ported yet (they come with the train
-    step).
+    filter + fixed-N resample and the decalibration protocol: the train
+    split's twists are drawn anew each epoch (`set_epoch`), the val/test
+    ones read from their table.
     """
 
     def __init__(self, source, cfg: DataConfig, split: str,
@@ -121,14 +125,28 @@ class PairDataset:
             self._table = read_perturbation_table(self._perturb_path, len(self.source))
         return self._table
 
+    def set_epoch(self, epoch: int) -> None:
+        """Fresh random train decalibrations each epoch (the reference draws a
+        new twist per item per epoch); the resampling also follows the
+        epoch."""
+        if epoch != self.epoch or (self.split == 'train' and self._igts is None):
+            self.epoch = epoch
+            if self.split == 'train':
+                self._igts = self._epoch_igts(epoch)
+
+    def _epoch_igts(self, epoch: int) -> np.ndarray:
+        """The epoch's decalibrations [len, 4, 4], drawn in one call from a
+        generator seeded by (seed, epoch)."""
+        twists = sample_twist(np.random.default_rng((self.seed, epoch)),
+                              self.cfg.max_rot_error, self.cfg.max_trans_error,
+                              self.cfg.distribution, self.cfg.mag_randomly,
+                              shape=(len(self.source),))
+        return se3.exp(twists).numpy()
+
     def __len__(self) -> int:
         return len(self.source)
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
-        if self.split == 'train':
-            raise NotImplementedError(
-                'train-split decalibrations are not ported yet (they come with the '
-                'train step); evaluate the val or test split')
         raw = self.source.load_pair(index)
         rng = np.random.default_rng((self.seed, self.epoch, index))
         out = {}
@@ -146,7 +164,8 @@ class PairDataset:
                                         if inten is not None else
                                         np.zeros(len(pts), np.float32))
         if self._igts is None:
-            self._igts = twists_to_igts(self.table)
+            self._igts = (self._epoch_igts(self.epoch) if self.split == 'train'
+                          else twists_to_igts(self.table))
         igt = self._igts[index]
         pts = out['pcd_right'] @ igt[:3, :3].T + igt[:3, 3]
         out['uncalibed_pcd'] = pts.astype(np.float32)
@@ -156,15 +175,16 @@ class PairDataset:
 
 
 def batch_iterator(dataset, batch_size: int, *, shuffle: bool = False,
-                   seed: int = 0, drop_last: bool = True,
-                   epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+                   seed: int = 0, drop_last: bool = True, epoch: int = 0,
+                   skip: int = 0) -> Iterator[Dict[str, np.ndarray]]:
     """Stack fixed-shape items into [B, ...] arrays, in the JAX package's
-    order; with `drop_last=False` the last batch may be shorter."""
+    order; with `drop_last=False` the last batch may be shorter.  The first
+    `skip` batches are passed over without loading (a resumed epoch)."""
     n = len(dataset)
     order = np.arange(n)
     if shuffle:
         np.random.default_rng((seed, epoch)).shuffle(order)
     end = n - (n % batch_size) if drop_last else n
-    for start in range(0, end, batch_size):
+    for start in range(skip * batch_size, end, batch_size):
         items = [dataset[int(i)] for i in order[start:start + batch_size]]
         yield {k: np.stack([it[k] for it in items]) for k in items[0]}

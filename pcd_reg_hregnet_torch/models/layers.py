@@ -33,11 +33,16 @@ def _cosine_similarity_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Channels-last BatchNorm over every axis but the last.
+    """Channels-last BatchNorm over every axis but the last, flax's in both
+    modes.
 
     `momentum` is torch's (flax momentum 0.9 is torch 0.1, 0.99 is 0.01).
     Parameters map from flax as scale -> weight, bias -> bias, mean ->
-    running_mean, var -> running_var.
+    running_mean, var -> running_var.  Eval mode normalises with the running
+    statistics.  Train mode follows `flax.linen.BatchNorm`: the batch mean
+    and the *biased* batch variance, max(0, E[x^2] - E[x]^2) (flax's fast
+    variance), normalise, and the running statistics move towards those same
+    two values (torch's `F.batch_norm` would store the unbiased variance).
     """
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
@@ -50,10 +55,19 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(x.reshape(-1, x.shape[-1]), self.running_mean,
-                         self.running_var, self.weight, self.bias,
-                         self.training, self.momentum, self.eps)
-        return y.reshape(x.shape)
+        if not self.training:
+            y = F.batch_norm(x.reshape(-1, x.shape[-1]), self.running_mean,
+                             self.running_var, self.weight, self.bias,
+                             False, self.momentum, self.eps)
+            return y.reshape(x.shape)
+        flat = x.reshape(-1, x.shape[-1])
+        mean = flat.mean(0)
+        var = torch.clamp((flat * flat).mean(0) - mean * mean, min=0.0)
+        with torch.no_grad():
+            decay = 1.0 - self.momentum
+            self.running_mean.copy_(decay * self.running_mean + self.momentum * mean)
+            self.running_var.copy_(decay * self.running_var + self.momentum * var)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
 class ConvBNReLU(nn.Module):

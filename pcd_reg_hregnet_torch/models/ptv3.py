@@ -3,8 +3,9 @@
 `cpe_neighbors`, `PatchAttention`, `PTv3Mlp`, `PTv3Block`,
 `PointTransformerEncoder`).
 
-The attention core always goes through `ops.kernels.attention.patch_attention`
-(kernel K3 on CUDA), at every patch size.  GELU is the tanh approximation
+The attention core always goes through
+`ops.kernels.attention.PatchAttentionFunction` (kernels K3 and K3b on CUDA),
+at every patch size.  GELU is the tanh approximation
 (flax's default); LayerNorm eps is 1e-2; the stem BatchNorm has eps 1e-2
 and torch momentum 0.01 (flax 0.99).
 """
@@ -17,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import serialization
-from ..ops.kernels.attention import patch_attention
+from ..ops.kernels.attention import PatchAttentionFunction
 from ..ops.neighbors import knn, knn_gather
 from .layers import BatchNorm
 
@@ -84,9 +85,7 @@ class PatchAttention(nn.Module):
         d = C // H
         R = B * (N // K)
         qkv = self.Dense_0(x).reshape(R, K, 3, H, d)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)   # [R,H,K,d] views, no copy
-        out = torch.empty((R, K, H, d), dtype=x.dtype, device=x.device)
-        patch_attention(q, k, v, d ** -0.5, out=out.transpose(1, 2))
+        out = PatchAttentionFunction.apply(qkv, d ** -0.5)   # [R, K, H, d]
         return self.Dense_1(out.reshape(B, N, C))
 
 

@@ -60,7 +60,11 @@ class RegistrationModel(nn.Module):
     """CoarseReg@L3 -> pose -> FineReg@L2 -> pose -> FineReg@L1 -> pose.
 
     The two feature towers are two calls of the same module, as in the JAX
-    package's default (`fuse_towers_*=False`).
+    package's default (`fuse_towers_*=False`): in training each call takes
+    its own BatchNorm statistics and updates the running ones in turn.
+    `fuse_towers_train` (in train mode) and `fuse_towers_eval` (in eval mode)
+    make them one call on the 2B clouds, split after, as the JAX package
+    does: joint BatchNorm statistics in training.
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -87,8 +91,14 @@ class RegistrationModel(nn.Module):
     @fp32_numerics()
     def forward(self, src_points: torch.Tensor, dst_points: torch.Tensor) -> dict:
         cfg = self.cfg
-        src = self.feature_extraction(src_points)
-        dst = self.feature_extraction(dst_points)
+        if cfg.fuse_towers_train if self.training else cfg.fuse_towers_eval:
+            B = src_points.shape[0]
+            both = self.feature_extraction(torch.cat([src_points, dst_points], dim=0))
+            src = {k: v[:B] for k, v in both.items()}
+            dst = {k: v[B:] for k, v in both.items()}
+        else:
+            src = self.feature_extraction(src_points)
+            dst = self.feature_extraction(dst_points)
         head = self.pose_head
 
         ret = {}

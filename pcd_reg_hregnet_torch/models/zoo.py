@@ -1,7 +1,9 @@
 """Named model presets (port of `pcd_reg_hregnet_tpu/models/zoo.py`).
 
-Only the presets the port can build are listed: `model_v6` (PTv3
-descriptor backbone, SVD head) for now.
+Every preset's configuration is listed (the experiment table names them);
+the port builds `model_v6` (PTv3 descriptor backbone, SVD head) for now,
+and `RegistrationModel` raises `NotImplementedError` for the others (conv
+and attention backbones, MI from the coarse level, the regression head).
 """
 from __future__ import annotations
 
@@ -17,6 +19,12 @@ from ..core.device import resolve_device
 from .registration import RegistrationModel
 
 _PRESETS = {
+    'hregnet': ModelConfig(name='hregnet'),
+    'model_v1': ModelConfig(name='model_v1', mi_from_coarse=True),
+    'model_v2': ModelConfig(name='model_v2', mi_from_fine2=True),
+    'model_v3': ModelConfig(name='model_v3', mi_from_fine2=True, head='regression'),
+    'model_v4': ModelConfig(name='model_v4', mi_from_fine2=True, circle_dists=True),
+    'model_v5': ModelConfig(name='model_v5', backbone='attention', mi_from_fine2=True),
     'model_v6': ModelConfig(name='model_v6', backbone='ptv3',
                             mi_from_fine2=True, circle_dists=True),
 }

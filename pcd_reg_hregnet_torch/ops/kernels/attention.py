@@ -1,12 +1,14 @@
-"""Patch attention forward: CUDA kernel K3 and its plain version.
+"""Patch attention: CUDA kernels K3 (forward) and K3b (backward), their
+plain versions, and the autograd Function that joins them.
 
-Replaces `pcd_reg_hregnet_tpu/ops/pallas/attention.py::_attn_kernel`; the
-kernel is `csrc/attention.cu`, a tiled flash kernel on the tensor cores
-(3xTF32 in f32, bf16 mma in bf16).  Layout is the JAX function's:
-q, k, v [R, H, K, d] -> out [R, H, K, d] in q's dtype, softmax in f32.
-The kernel takes any K and d and any strides with a contiguous last dim;
-`plan` is its tiling.  Forward only: the backward kernel comes with the
-training path.
+K3 replaces `pcd_reg_hregnet_tpu/ops/pallas/attention.py::_attn_kernel`;
+the kernel is `csrc/attention.cu`, a tiled flash kernel on the tensor cores
+(3xTF32 in f32, bf16 mma in bf16).  K3b replaces that file's `_bwd` (the
+`custom_vjp` backward); the kernel is `csrc/attention_bwd.cu` (f32 only).
+Layout is the JAX function's: q, k, v [R, H, K, d] -> out [R, H, K, d] in
+q's dtype, softmax in f32.  Both kernels take any K and d and any strides
+with a contiguous last dim; `plan` is K3's tiling.  The model goes through
+`PatchAttentionFunction`, so autograd sees every write of the kernels.
 """
 from __future__ import annotations
 
@@ -190,8 +192,15 @@ def patch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v: [R, H, K, d], any strides with a contiguous last dim.  The
     result goes into `out` when given (any such [R, H, K, d] view, for
     example of an [R, K, H, d] buffer), else into a new contiguous tensor.
-    Kernel K3 on CUDA tensors, the plain version on CPU tensors.
+    Kernel K3 on CUDA tensors, the plain version on CPU tensors.  No
+    gradient flows through this call: with grad enabled, `out` is refused
+    for inputs that require grad (the kernel's write into it is invisible to
+    autograd); `PatchAttentionFunction` is the differentiable form.
     """
+    if out is not None and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise RuntimeError('patch_attention: out= with inputs that require grad would '
+                           'write where autograd cannot see; use PatchAttentionFunction')
     if q.device.type == 'cpu':
         ref = patch_attention_reference(q, k, v, scale)
         return ref if out is None else out.copy_(ref)
@@ -203,3 +212,127 @@ def patch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 patch_attention.launches = 0
+
+
+def patch_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                       g: torch.Tensor, scale: float):
+    """Plain PyTorch backward with the JAX `_bwd` numerics (f32): (dq, dk, dv)
+    of `patch_attention` for the output gradient g [R, H, K, d]."""
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    s = torch.einsum('rhkd,rhmd->rhkm', qf * scale, kf)
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum('rhkm,rhkd->rhmd', p, gf)
+    dp = torch.einsum('rhkd,rhmd->rhkm', gf, vf)
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    dq = torch.einsum('rhkm,rhmd->rhkd', ds, kf) * scale
+    dk = torch.einsum('rhkm,rhkd->rhmd', ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@functools.lru_cache(maxsize=1024)
+def _backward_args(shape: tuple, dtype: torch.dtype, strides: tuple):
+    """Validate what K3b takes of one layout (raises ValueError) and return
+    its parameter array; cached per layout."""
+    if len(shape) != 4:
+        raise ValueError(f'patch_attention_backward takes [R, H, K, d], got {shape}')
+    if dtype != torch.float32:
+        raise ValueError(f'patch_attention_backward kernel takes f32, got {dtype}')
+    R, H, K, d = shape
+    names = ('q', 'k', 'v', 'o', 'g', 'dq', 'dk', 'dv')
+    for name, st in zip(names, strides):
+        if d > 1 and st[3] != 1:
+            raise ValueError(f'patch_attention_backward kernel takes a contiguous last '
+                             f'dim, got {name} strides {st}')
+    if R * H * -(-K // 32) >= 2 ** 31:
+        raise ValueError(f'patch_attention_backward kernel: R*H*ceil(K/32) must be '
+                         f'< 2**31, got shape {shape}')
+    return (ctypes.c_longlong * 28)(*(x for st in strides for x in st[:3]), *shape)
+
+
+def _launch_backward(q, k, v, o, g, scale: float, out=None):
+    """Launch K3b: (dq, dk, dv) into `out` (new contiguous tensors by
+    default); counts nothing."""
+    for name, t in (('k', k), ('v', v), ('o', o), ('g', g), *zip(
+            ('dq', 'dk', 'dv'), out or ())):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.get_device() != q.get_device()):
+            raise ValueError(f'patch_attention_backward: {name} {t.dtype} '
+                             f'{tuple(t.shape)} on {t.device} does not match q '
+                             f'{q.dtype} {tuple(q.shape)} on {q.device}')
+    if out is None:
+        out = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    ts = (q, k, v, o, g, *out)
+    params = _backward_args(tuple(q.shape), q.dtype, tuple(t.stride() for t in ts))
+    dev = q.get_device()
+    scratch = torch.empty((2, q.shape[0] * q.shape[1] * q.shape[2]), dtype=torch.float32,
+                          device=q.device)
+    lib = build.library()
+    with torch.cuda.device(dev) if dev != torch.cuda.current_device() else _NO_CONTEXT:
+        err = lib.lib.pcdreg_patch_attention_bwd(
+            *(t.data_ptr() for t in ts), scratch[0].data_ptr(), scratch[1].data_ptr(),
+            params, float(scale), torch.cuda.current_stream(dev).cuda_stream)
+    lib.check(err, 'pcdreg_patch_attention_bwd')
+    return out
+
+
+def patch_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, g: torch.Tensor, scale: float,
+                             out: Optional[tuple] = None) -> tuple:
+    """(dq, dk, dv) of `patch_attention(q, k, v, scale)` = o for the output
+    gradient g, all [R, H, K, d] with a contiguous last dim (any other
+    strides).  Written into `out` = (dq, dk, dv) views when given, else new
+    contiguous tensors.  Kernel K3b (two launches: dq, then dk and dv) on
+    CUDA f32 tensors, the plain version on CPU tensors (which does not
+    read o)."""
+    if q.device.type == 'cpu':
+        ref = patch_attention_backward_reference(q, k, v, g, scale)
+        if out is None:
+            return ref
+        for dst, src in zip(out, ref):
+            dst.copy_(src)
+        return out
+    if q.device.type != 'cuda':
+        raise ValueError(f'patch_attention_backward: unsupported device {q.device}')
+    out = _launch_backward(q, k, v, o, g, scale, out)
+    patch_attention_backward.launches += 1
+    return out
+
+
+patch_attention_backward.launches = 0
+
+
+def unpack_qkv(qkv: torch.Tensor) -> tuple:
+    """q, k, v [R, H, K, d] views of a packed projection [R, K, 3, H, d]."""
+    return qkv.permute(2, 0, 3, 1, 4).unbind(0)
+
+
+class PatchAttentionFunction(torch.autograd.Function):
+    """Differentiable patch attention over a packed projection.
+
+    ``apply(qkv, scale)``: qkv [R, K, 3, H, d] (the PTv3 projection, any
+    strides with a contiguous last dim) -> out [R, K, H, d] contiguous, the
+    attention of its q, k, v views.  The forward goes through
+    `patch_attention` (K3 on CUDA, the plain version on CPU) straight into
+    `out`; the backward through `patch_attention_backward` (K3b on CUDA, the
+    plain backward on CPU), which writes dq, dk and dv as views of one
+    [R, K, 3, H, d] gradient, so the projection's backward takes it with no
+    copy.  Saves qkv and out.
+    """
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, scale: float) -> torch.Tensor:
+        R, K, _, H, d = qkv.shape
+        out = torch.empty((R, K, H, d), dtype=qkv.dtype, device=qkv.device)
+        patch_attention(*unpack_qkv(qkv), scale, out=out.transpose(1, 2))
+        ctx.save_for_backward(qkv, out)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        qkv, out = ctx.saved_tensors
+        if grad.stride(-1) != 1:
+            grad = grad.contiguous()
+        dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+        patch_attention_backward(*unpack_qkv(qkv), out.transpose(1, 2), grad.transpose(1, 2),
+                                 ctx.scale, out=unpack_qkv(dqkv))
+        return dqkv, None

@@ -75,6 +75,10 @@ class KernelLibrary:
         lib.pcdreg_patch_attention.argtypes = [
             vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, vp]
         lib.pcdreg_patch_attention.restype = ci
+        lib.pcdreg_patch_attention_bwd.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),
+            ctypes.c_float, vp]
+        lib.pcdreg_patch_attention_bwd.restype = ci
         lib.pcdreg_attention_plan.argtypes = [ci, ci, ci, ci, pi, pi, pi]
         lib.pcdreg_attention_plan.restype = ci
         lib.pcdreg_error_string.argtypes = [ci]

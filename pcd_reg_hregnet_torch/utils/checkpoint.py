@@ -1,16 +1,20 @@
-"""Trained weights for the port (counterpart of
-`pcd_reg_hregnet_tpu/train/loop.py::restore_params` and
-`cli.py::_ckpt_config`).
+"""Checkpoints of the port: the exported JAX weights, and train checkpoints
+(counterparts of `pcd_reg_hregnet_tpu/train/loop.py::restore_params`,
+`save_checkpoint`, `restore_checkpoint` and `cli.py::_ckpt_config`).
 
 The JAX package saves orbax checkpoints, which need orbax and tensorstore
 to read.  `tools/export_torch_weights.py` turns one into an uncompressed
 `.npz` of flax leaves (`params/...`, `batch_stats/...`, `/`-joined paths)
 beside its `meta.json` (`<stem>.meta.json`); this module reads them with
-numpy alone.
+numpy alone.  A train checkpoint is a directory holding `state.pt` (the
+model's `state_dict`, the optimizer's state, step, epoch, best metrics and
+the config JSON, by `torch.save`) and `meta.json` (the same but the
+tensors).
 """
 from __future__ import annotations
 
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -20,6 +24,7 @@ from ..core.config import ASSETS_DIR, Config
 from .convert import from_flax
 
 FLAGSHIP = ASSETS_DIR / 'r5_v11_knn_best_rre.npz'   # reg_v11, model_v6
+TRAIN_STATE = 'state.pt'
 
 
 def meta_path(path: str | Path) -> Path:
@@ -49,3 +54,32 @@ def load_variables(path: str | Path) -> dict:
 def load(path: str | Path = FLAGSHIP) -> tuple[Config, dict[str, torch.Tensor]]:
     """(Config, state_dict) of an exported checkpoint."""
     return load_config(path), from_flax(load_variables(path))
+
+
+def save_train(path: str | Path, state, cfg: Config) -> Path:
+    """Write the train state (`train.loop.TrainState`) as a checkpoint
+    directory at `path`; each file is replaced whole (written beside, then
+    renamed), so an interrupted save leaves the previous one."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    meta = {'step': state.step, 'epoch': state.epoch, 'best': dict(state.best),
+            'config': cfg.to_json()}
+    payload = dict(meta, model=state.objective.model.state_dict(),
+                   optimizer=state.optimizer.state_dict())
+    torch.save(payload, path / (TRAIN_STATE + '.tmp'))
+    os.replace(path / (TRAIN_STATE + '.tmp'), path / TRAIN_STATE)
+    with open(path / 'meta.json.tmp', 'w') as f:
+        json.dump(meta, f)
+    os.replace(path / 'meta.json.tmp', path / 'meta.json')
+    return path
+
+
+def restore_train(path: str | Path, state) -> None:
+    """Load a train checkpoint written by `save_train` into `state`: model
+    (strict), optimizer, step, epoch and best metrics."""
+    device = next(state.objective.parameters()).device
+    saved = torch.load(Path(path) / TRAIN_STATE, map_location=device, weights_only=True)
+    state.objective.model.load_state_dict(saved['model'], strict=True)
+    state.optimizer.load_state_dict(saved['optimizer'])
+    state.step, state.epoch = int(saved['step']), int(saved['epoch'])
+    state.best.update({k: float(v) for k, v in saved['best'].items() if k in state.best})

@@ -161,8 +161,9 @@ class TestPairDataset:
     def test_refusals(self, tmp_path):
         with pytest.raises(NotImplementedError, match='item 12'):
             load_dataset(DataConfig(dataset='man'), 'test')
-        with pytest.raises(NotImplementedError, match='train'):
-            load_dataset(DataConfig(pcd_min_samples=64), 'train')[0]
+        # the train split is no longer refused: its twists are drawn per epoch
+        item = load_dataset(DataConfig(pcd_min_samples=64), 'train', length=2)[0]
+        assert item['igt'].shape == (4, 4) and np.all(np.isfinite(item['igt']))
         ds = load_dataset(DataConfig(pcd_min_samples=64, path=str(tmp_path)), 'test')
         with pytest.raises(FileNotFoundError, match='export_torch_weights'):
             ds[0]

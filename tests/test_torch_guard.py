@@ -3,7 +3,8 @@
 The port must run where only PyTorch is installed, so no module of
 `pcd_reg_hregnet_torch` and nothing `chip_smoke.py` imports may import
 JAX, flax, orbax or the JAX package.  A fresh interpreter with those imports blocked
-imports every module and runs the CPU serving path once.  The CUDA sources
+imports every module (`train/` and `losses/` among them), runs the CPU
+serving path once and takes one CPU train step.  The CUDA sources
 must not include PyTorch's headers (one plain nvcc call builds them in
 seconds).
 """
@@ -40,6 +41,20 @@ dst = rng.uniform(-40, 40, (400, 3)).astype(np.float32)
 src = dst + np.float32(0.2)
 out = serve.infer_pair(model, src, dst, device='cpu', num_points=256)
 assert np.all(np.isfinite(out['transform'])), out
+assert {'pcd_reg_hregnet_torch.train.loop', 'pcd_reg_hregnet_torch.train.objective',
+        'pcd_reg_hregnet_torch.train.optimizer', 'pcd_reg_hregnet_torch.train.experiments',
+        'pcd_reg_hregnet_torch.losses.losses'} <= set(mods), mods
+import dataclasses
+from pcd_reg_hregnet_torch.train import experiments, loop
+cfg = experiments.experiment('reg_v11')
+cfg = dataclasses.replace(cfg, model=model.cfg)
+state = loop.create_state(cfg, 10, device='cpu')
+igt = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+igt[:, :3, 3] = 0.2
+batch = {'uncalibed_pcd': np.stack([src[:256]] * 2), 'pcd_left': np.stack([dst[:256]] * 2),
+         'igt': igt}
+metrics = loop.make_train_step()(state, loop.to_device(batch, torch.device('cpu')))
+assert np.isfinite(float(metrics['loss'])) and state.step == 1, metrics
 bad = sorted(k for k, v in sys.modules.items() if v is not None and
              k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'orbax', 'optax',
                                  'pcd_reg_hregnet_tpu'))
