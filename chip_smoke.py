@@ -29,11 +29,16 @@ Phases, each printing its own line with seconds:
    K3 and SDPA are timed as calls issued back to back (the JSON line's
    figures, as for FPS) and as device time (20 calls captured in a CUDA
    graph and replayed: `pcd_reg_hregnet_torch/time_attention.py`), which
-   the bound's share is taken of.  The attention backward (K3b) against its
-   plain version within `ATTN_BWD_TOL` of each gradient's largest value, at
-   every (K, d) of the train step at B=8 and B=1 and every `ATTN_OPENED`
-   shape, on strided views, timed back to back and as device time beside
-   its bound and SDPA's backward;
+   the bound's share is taken of.  The attention backward (K3b): its block
+   tilings and `plan_backward` against the compiled ones; against its
+   plain version within `ATTN_BWD_TOL` of each gradient's largest value, in
+   every tiling, at every (K, d) of the train step at B=8 and B=1 and every
+   `ATTN_OPENED` shape, on strided views, two calls bit-identical, with
+   K3's log-sum-exp (which K3b takes) within `ATTN_LSE_TOL` of the plain
+   one; timed back to back and as device time beside its bounds (3xTF32 and
+   f32 CUDA cores) and SDPA's backward, with the sweep of tilings behind
+   `plan_backward` (a note where its choice reads more than 5% slower than
+   the sweep's best);
 4. serve: `model_v6` at full width (8096-point clouds, 1024/512/256
    keypoints, PTv3 depths (2,2,2)) with the trained flagship weights
    (`port_assets/r5_v11_knn_best_rre.npz`, the JAX package's `reg_v11`
@@ -133,6 +138,9 @@ EVAL_MAX_OUTSIDE = {'layer_0': 14, 'layer_1': 2, 'layer_2': 2, 'layer_3': 2}
 # tensor's max |value| (f32 sums in another order; the forward's 1e-5 is
 # absolute on outputs of order 1, gradients reach ~1e2 at K = 256)
 ATTN_BWD_TOL = 1e-4
+# K3's log-sum-exp of each query row (values ~1-10) against the plain one:
+# absolute, f32 round-off of the running max and sum
+ATTN_LSE_TOL = 1e-5
 TRAIN_STEPS = 20        # optimizer steps of the counted `fit` (reg_v11 from the flagship)
 TRAIN_VAL_PAIRS = 16    # its validation: the first pairs of the val split
 TRAIN_TIMED = 8         # synced steps timed after it
@@ -488,67 +496,134 @@ def check_attention(torch, lib, kattn, gen, t0) -> dict:
 
 
 def attn_bwd_bounds(R, H, K, d):
-    """(bytes, operations) times in ms of one K3b call: q, k, v, o and g read
+    """(bytes, operations) times in ms of one K3b call: q, k, v, o, g read
     once and dq, dk, dv written once over HBM (f32); the five K*K*d products
-    (s, recomputed since p is not an input, then dp, dv, dq, dk) as f32 FMA
-    on the CUDA cores, which is what the kernel runs them on."""
+    (s, recomputed since p is not an input, then dp, dv, dq, dk) at 3xTF32
+    on the tensor cores (495/3 TFLOP/s), which is what the kernel runs
+    them on; also returned, third, the operations against the 67 TFLOP/s of
+    f32 on the CUDA cores (the route of the kernel's first, two-pass
+    version)."""
     nbytes = 8 * R * H * K * d * 4
     flops = 10 * R * H * K * K * d
-    return nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOPS_S * 1e3
+    return (nbytes / HBM_BYTES_S * 1e3, flops / (TF32_FLOPS_S / 3) * 1e3,
+            flops / F32_FLOPS_S * 1e3)
 
 
-def check_attention_backward(torch, kattn, gen, t0) -> dict:
-    """K3b against the plain backward (full f32) at every (K, d) of the
-    train step at B=8 and B=1 and at every `ATTN_OPENED` shape, on fresh
+def check_attention_backward(torch, lib, kattn, gen, t0) -> dict:
+    """K3b: its tilings against the compiled ones; against the plain
+    backward (full f32) at every (K, d) of the train step at B=8 and B=1
+    and at every `ATTN_OPENED` shape, in every block tiling, on fresh
     strided views (q, k, v of a [R, K, 3, H, d] projection, g of an
-    [R, K, H, d] gradient, dq, dk, dv into one [R, K, 3, H, d] buffer);
-    timed per train step (36 calls at B=8) back to back and as device time,
-    beside its bound and the backward of SDPA on the same f32 shapes."""
+    [R, K, H, d] gradient, dq, dk, dv into one [R, K, 3, H, d] buffer), with
+    the log-sum-exp that K3 writes held against the plain one; two calls on
+    the same inputs bit-identical; timed per train step (36 calls at B=8)
+    back to back and as device time, beside its bounds and the backward of
+    SDPA on the same f32 shapes, with the sweep of block tilings."""
+    import ctypes
+
     from pcd_reg_hregnet_torch.time_attention import call_ms, device_ms, shapes
     F = torch.nn.functional
+    a, b, c, e = (ctypes.c_int() for _ in range(4))
+    compiled = []
+    while lib.lib.pcdreg_attention_bwd_tiling(len(compiled), a, b) > 0:
+        compiled.append((a.value, b.value))
+    if tuple(compiled) != kattn.BWD_TILES:
+        raise AssertionError(f'csrc/attention_bwd.cu tilings {compiled} differ from '
+                             f'ops/kernels/attention.py BWD_TILES {kattn.BWD_TILES}')
+    for K in (1, 33, 64, 100, 128, 256, 512, 513, 1024):
+        for d in (1, 5, 8, 16, 24, 32, 64, 100, 128, 129, 256, 300):
+            for tile in kattn.BWD_TILES:
+                p = kattn.plan_backward(1, 1, K, d, tile)
+                smem = lib.lib.pcdreg_attention_bwd_plan(K, d, *tile, a, b, c, e)
+                got = (smem, a.value, b.value, c.value, e.value)
+                if got != (p.smem, p.dp, p.bm, p.stages, p.cluster):
+                    raise AssertionError(f'attention backward plan K={K} d={d} {tile}: csrc '
+                                         f'(smem, dp, bm, stages, cluster) {got} != '
+                                         f'ops/kernels {p}')
     tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'library_ms': 0.0}
-    dev_step = 0.0
+    dev_step = lib_dev_step = bound_67 = 0.0
     max_err = 0.0
     by = {'bytes': 0.0, 'operations': 0.0}
 
     def case(R, H, K, d):
+        """Inputs at [R, H, K, d] and the worst max |err| / max |value| of
+        dq, dk, dv over every tiling, each launched twice (bit-identical)."""
+        scale = d ** -0.5
         qkv = torch.randn((R, K, 3, H, d), generator=gen).cuda()
         q, k, v = kattn.unpack_qkv(qkv)
-        o = kattn.patch_attention(q, k, v, d ** -0.5)
+        lse = torch.empty((R, H, K), device='cuda')
+        o = kattn.patch_attention(q, k, v, scale, lse=lse)
         g = torch.randn((R, K, H, d), generator=gen).cuda().transpose(1, 2)
-        buf = torch.empty_like(qkv)
-        got = kattn.patch_attention_backward(q, k, v, o, g, d ** -0.5,
-                                             out=kattn.unpack_qkv(buf))
-        ref = kattn.patch_attention_backward_reference(q, k, v, g, d ** -0.5)
-        torch.cuda.synchronize()
-        errs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-                for a, b in zip(got, ref)]
-        if not max(errs) <= ATTN_BWD_TOL:
-            raise AssertionError(f'patch_attention_backward {(R, H, K, d)}: max |err| / max '
-                                 f'|value| of dq, dk, dv {errs} > {ATTN_BWD_TOL}')
-        return (q, k, v, o, g), max(errs)
+        ref = kattn.patch_attention_backward_reference(q, k, v, g, scale)
+        lse_err = float((lse - kattn.attention_lse_reference(q, k, scale)).abs().max())
+        if not lse_err <= ATTN_LSE_TOL:
+            raise AssertionError(f'patch_attention lse {(R, H, K, d)}: max |err| {lse_err} '
+                                 f'> {ATTN_LSE_TOL}')
+        worst = 0.0
+        for tile in [None, *kattn.BWD_TILES]:
+            bufs = [torch.empty_like(qkv) for _ in range(2)]
+            for buf in bufs:
+                if tile is None:   # the wrapper, as the train step calls it
+                    kattn.patch_attention_backward(q, k, v, o, g, scale,
+                                                   out=kattn.unpack_qkv(buf), lse=lse)
+                else:
+                    kattn._launch_backward(q, k, v, o, g, scale, kattn.unpack_qkv(buf), lse,
+                                           tile)
+            torch.cuda.synchronize()
+            errs = [float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                    for x, y in zip(kattn.unpack_qkv(bufs[0]), ref)]
+            if not max(errs) <= ATTN_BWD_TOL:
+                raise AssertionError(f'patch_attention_backward {(R, H, K, d)} tiling {tile}: '
+                                     f'max |err| / max |value| of dq, dk, dv {errs} > '
+                                     f'{ATTN_BWD_TOL}')
+            if not torch.equal(bufs[0], bufs[1]):
+                raise AssertionError(f'patch_attention_backward {(R, H, K, d)} tiling {tile}: '
+                                     f'two calls on the same inputs differ')
+            worst = max(worst, *errs)
+        return (q, k, v, o, g, lse), worst, lse_err
 
     for B in (BATCH, 1):
         for R, H, K, d in shapes(B):
-            (q, k, v, o, g), err = case(R, H, K, d)
+            (q, k, v, o, g, lse), err, lse_err = case(R, H, K, d)
             scale = d ** -0.5
-            ms = call_ms(lambda: kattn.patch_attention_backward(q, k, v, o, g, scale), 20)
-            dev = device_ms(lambda: kattn.patch_attention_backward(q, k, v, o, g, scale), 20)
+
+            def kern():
+                return kattn.patch_attention_backward(q, k, v, o, g, scale, lse=lse)
+            ms = call_ms(kern, 20)
+            dev = device_ms(kern, 20)
             plain_ms = call_ms(lambda: kattn.patch_attention_backward_reference(
                 q, k, v, g, scale), 20)
             qs, ks, vs = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
-            out = F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
             gs = g.contiguous()
-            lib_ms = call_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), gs,
-                                                         retain_graph=True), 20)
-            b_bytes, b_ops = attn_bwd_bounds(R, H, K, d)
+            side = torch.cuda.Stream()   # autograd runs the backward on the forward's stream
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                out = F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(out, (qs, ks, vs), gs, retain_graph=True)
+            lib_ms = call_ms(sdpa_bwd, 20, side)
+            lib_dev = device_ms(sdpa_bwd, 20, side)
+            b_bytes, b_ops, b_67 = attn_bwd_bounds(R, H, K, d)
             bound = max(b_bytes, b_ops)
             kind = 'bytes' if b_bytes >= b_ops else 'operations'
+            p = kattn.plan_backward(R, H, K, d, sms=torch.cuda.get_device_properties(0)
+                                    .multi_processor_count)
             log('kernels', t0, f'patch_attention_backward B={B} R={R} H={H} K={K} d={d} f32: '
-                f'max|err|/max|value| {err:.2e}; back to back: kernel {ms * 1e3:.2f} us, '
-                f'plain {plain_ms * 1e3:.2f} us, sdpa backward {lib_ms * 1e3:.2f} us; device '
-                f'time: kernel {dev * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({kind}), share '
-                f'of bound {bound / dev:.1%}')
+                f'max|err|/max|value| {err:.2e} (every tiling, two calls bit-identical), lse '
+                f'max|err| {lse_err:.2e}; back to back: kernel {ms * 1e3:.2f} us, plain '
+                f'{plain_ms * 1e3:.2f} us, sdpa backward {lib_ms * 1e3:.2f} us; device time: '
+                f'kernel {dev * 1e3:.2f} us (tiling {(p.bn, p.qs)}, cluster {p.cluster}), sdpa '
+                f'backward {lib_dev * 1e3:.2f} us; bound {bound * 1e3:.2f} us ({kind}, 3xTF32), '
+                f'{max(b_bytes, b_67) * 1e3:.2f} us (67 TFLOP/s); share of bound {bound / dev:.1%}')
+            sweep = {t: device_ms(lambda t=t: kattn._launch_backward(
+                q, k, v, o, g, scale, None, lse, t), 20) for t in kattn.BWD_TILES}
+            log('kernels', t0, '  sweep (bn, qs), device time: ' + ', '.join(
+                f'{t} {x * 1e3:.2f} us' for t, x in sweep.items()))
+            best = min(sweep, key=sweep.get)
+            if sweep[(p.bn, p.qs)] > 1.05 * sweep[best]:
+                log('kernels', t0, f'  note: plan_backward\'s {(p.bn, p.qs)} reads '
+                    f'{sweep[(p.bn, p.qs)] / sweep[best] - 1:.0%} slower than {best}')
             if B == BATCH:   # per train step: two blocks per stage, two towers
                 n = ATTN_DEPTH * TOWERS
                 tot['ms'] += n * ms
@@ -556,16 +631,19 @@ def check_attention_backward(torch, kattn, gen, t0) -> dict:
                 tot['library_ms'] += n * lib_ms
                 tot['bound_ms'] += n * bound
                 dev_step += n * dev
+                lib_dev_step += n * lib_dev
+                bound_67 += n * max(b_bytes, b_67)
                 max_err = max(max_err, err)
                 by[kind] += bound
     log('kernels', t0, f'patch_attention_backward per B={BATCH} train step: back to back: '
         f'kernel {tot["ms"]:.4f} ms, sdpa backward {tot["library_ms"]:.4f} ms, plain '
-        f'{tot["plain_ms"]:.4f} ms; device time: kernel {dev_step:.4f} ms; bound '
-        f'{tot["bound_ms"]:.4f} ms (f32 CUDA cores)')
+        f'{tot["plain_ms"]:.4f} ms; device time: kernel {dev_step:.4f} ms, sdpa backward '
+        f'{lib_dev_step:.4f} ms; bound {tot["bound_ms"]:.4f} ms (3xTF32; share '
+        f'{tot["bound_ms"] / dev_step:.1%}), {bound_67:.4f} ms (67 TFLOP/s f32)')
     for shape in ATTN_OPENED:
-        _, err = case(*shape)
+        _, err, lse_err = case(*shape)
         log('kernels', t0, f'patch_attention_backward {shape} f32: max|err|/max|value| '
-            f'{err:.2e}')
+            f'{err:.2e} over every tiling, two calls bit-identical; lse max|err| {lse_err:.2e}')
     return {'name': 'patch_attention_bwd', 'route': 'cuda',
             'source': 'pcd_reg_hregnet_torch/csrc/attention_bwd.cu',
             'replaces': 'pcd_reg_hregnet_tpu/ops/pallas/attention.py:93',
@@ -1123,7 +1201,7 @@ def main() -> int:
     with fp32_numerics():   # the plain versions in full f32, as in the model's forward
         entries = check_fps(torch, kfps, t0)
         entries.append(check_attention(torch, lib, kattn, gen, t0))
-        entries.append(check_attention_backward(torch, kattn, gen, t0))
+        entries.append(check_attention_backward(torch, lib, kattn, gen, t0))
 
     counted = [serve_phase(torch, t0), eval_phase(torch, t0, smi), train_phase(torch, t0, smi)]
     for e in entries:

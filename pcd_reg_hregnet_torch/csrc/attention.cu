@@ -10,6 +10,10 @@
 // tensor comes with its own strides (the last dim contiguous), so the
 // caller can hand in views of a fused qkv projection and an output buffer
 // in its own layout.
+// Given an lse buffer (the train step's forward), the kernel also writes
+// each query row's log-sum-exp of the scaled scores, m + log(l) from the
+// softmax's running max and sum, so that the backward (attention_bwd.cu,
+// K3b) forms the probabilities with no second pass over the keys.
 //
 // What bounds it on this card: operations at the production K = 256 and
 // 128 (each (patch, head) reads 3*K*d values and does 4*K*K*d FLOPs), bytes
@@ -60,6 +64,8 @@
 #include <atomic>
 #include <type_traits>
 
+#include "tf32_tiles.cuh"
+
 namespace {
 
 constexpr int kMaxDevices = 64;
@@ -68,6 +74,7 @@ constexpr int kSplit = 4;          // warps that share 16 rows (f32, d <= 128)
 constexpr int kMaxSmem = 232448;   // 227 KB a block may opt in to
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   long long r, h, k;   // elements; the last dim is contiguous
@@ -78,6 +85,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;               // [R * H * K] or null: each query row's log-sum-exp
   Strides sq, sk, sv, so;
   int heads, K, d, tiles;   // tiles: query tiles of BM rows per (patch, head)
   float scale_log2;         // scale * log2(e)
@@ -100,34 +108,6 @@ struct Tile {
   static constexpr int LD = DP + 16 / (int)sizeof(T);
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float x, float* dst) { *dst = x; }
-__device__ __forceinline__ void store(float x, __nv_bfloat16* dst) { *dst = __float2bfloat16(x); }
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// x = hi + lo: hi is x rounded to tf32's 10 mantissa bits (half away from
-// zero, by integer ops), lo = x - hi exactly.  The tensor core reads the
-// top 19 bits of a tf32 operand, so lo goes in as it is (truncated there,
-// an error of at most 2^-21 |x|), and no cvt is spent on either part.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
@@ -144,46 +124,6 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(s), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
-
-// Stage rows [0, BN) x columns [0, DP) of `src` (row stride `ld`) into
-// `dst` (row stride LD), zero past `rows` rows and `cols` columns: 16-byte
-// cp.async where the rows allow it, plain loads where they do not.
-template <typename T, int BN, int DP, int LD>
-__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long ld,
-                                           int rows, int cols, bool vec) {
-  if (vec) {
-    constexpr int E = 16 / (int)sizeof(T);
-    constexpr int CPR = DP / E;   // chunks per row
-    for (int i = threadIdx.x; i < BN * CPR; i += blockDim.x) {
-      const int row = i / CPR, col = (i % CPR) * E;
-      const int n = row < rows ? max(0, min(E, cols - col)) : 0;
-      cp_async16(dst + row * LD + col, n ? src + row * ld + col : src, n * (int)sizeof(T));
-    }
-  } else {
-    for (int i = threadIdx.x; i < BN * DP; i += blockDim.x) {
-      const int row = i / DP, col = i % DP;
-      T x;
-      if (row < rows && col < cols) x = src[row * ld + col];
-      else store(0.f, &x);
-      dst[row * LD + col] = x;
-    }
-  }
 }
 
 template <typename T, int DP, bool WIDE, int SPLIT>
@@ -551,6 +491,7 @@ attn_kernel(const Args a) {
         acc += w * po[(p * bm + row) * LDO + c];
       }
       store(acc / l, op + (tile_row0 + row) * a.so.k + c);
+      if (a.lse && c == 0) a.lse[(long long)rh * K + tile_row0 + row] = (mx + log2f(l)) * kLn2;
     }
     return;
   }
@@ -561,6 +502,11 @@ attn_kernel(const Args a) {
   float* ob = reinterpret_cast<float*>(smem_raw);   // [bm][LDO]
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int la = warp * 16 + g, lb = la + 8;
+  if (a.lse && t == 0 && blockIdx.y == 0) {   // the scores in log2 units: back to natural
+    float* lse = a.lse + (long long)rh * K + tile_row0;
+    if (tile_row0 + la < K) lse[la] = (m0 + log2f(l0)) * kLn2;
+    if (tile_row0 + lb < K) lse[lb] = (m1 + log2f(l1)) * kLn2;
+  }
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     const int c = n * 8 + 2 * t;
@@ -667,7 +613,9 @@ bool aligned16(const void* p, const Strides& s, int elem) {
 }  // namespace
 
 // q, k, v, out: [r, h, K, d] on the current device, f32 (dtype 0) or bf16
-// (dtype 1), each with its last dim contiguous.  p holds, as 64-bit
+// (dtype 1), each with its last dim contiguous; lse: null, or f32 [r, h, K]
+// contiguous, which receives each query row's log-sum-exp of the scaled
+// scores (what the backward, K3b, needs of the softmax).  p holds, as 64-bit
 // integers, the strides (elements) of dims r, h, K in the order q, k, v,
 // out (p[0..11]), then r, h, K, d, bm, split and dtype (p[12..18]): the
 // wrapper caches it per layout, so a launch passes 7 arguments.  bm: query
@@ -676,7 +624,7 @@ bool aligned16(const void* p, const Strides& s, int elem) {
 // (bm * split <= 128).  Any K >= 1, d >= 1.  Returns the cudaError_t of the
 // launch (0 = ok).
 extern "C" int pcdreg_patch_attention(const void* q, const void* k, const void* v,
-                                      void* out, const long long* p, float scale,
+                                      void* out, void* lse, const long long* p, float scale,
                                       void* stream) {
   const long long r = p[12], h = p[13], K = p[14], d = p[15], bm = p[16], split = p[17],
                   dtype = p[18];
@@ -691,6 +639,7 @@ extern "C" int pcdreg_patch_attention(const void* q, const void* k, const void* 
   a.k = k;
   a.v = v;
   a.o = out;
+  a.lse = (float*)lse;
   Strides* s[4] = {&a.sq, &a.sk, &a.sv, &a.so};
   for (int i = 0; i < 4; ++i) *s[i] = Strides{p[3 * i], p[3 * i + 1], p[3 * i + 2]};
   a.heads = (int)h;

@@ -38,18 +38,34 @@ def model_config(name: str, **overrides) -> ModelConfig:
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
+# std of a standard normal truncated to [-2, 2] (flax's variance_scaling
+# divides by it, so that the truncated draw keeps the variance 1/fan_in)
+TRUNCATED_STD = 0.87962566103423978
+
+
+def lecun_normal_(shape: tuple, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """flax's default kernel init, `lecun_normal`: a normal of std
+    sqrt(1/fan_in) / TRUNCATED_STD truncated to two of its stds, drawn by
+    inverse CDF (in f64) from uniforms of `generator`; f32 on the CPU."""
+    lo, hi = (0.5 * (1 + math.erf(x / math.sqrt(2))) for x in (-2.0, 2.0))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    z = math.sqrt(2) * torch.erfinv(2 * (lo + u * (hi - lo)) - 1)
+    std = math.sqrt(1.0 / fan_in) / TRUNCATED_STD
+    return (z.clamp(-2.0, 2.0) * std).float()
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded flax-style init: every weight of fan-in f drawn from
-    N(0, 1/f) (flax's lecun_normal, untruncated), biases 0, norm scales 1."""
+    """Seeded flax-style init: every weight of fan-in f drawn from flax's
+    lecun_normal (a normal of std sqrt(1/f) / TRUNCATED_STD truncated to
+    two stds, so of variance 1/f), biases 0, norm scales 1."""
     for name, p in model.named_parameters():
         leaf = name.rsplit('.', 1)[-1]
         owner = model.get_submodule(name.rsplit('.', 1)[0])
         if leaf == 'bias':
             p.zero_()
         elif isinstance(owner, (nn.Linear, nn.Conv1d)):
-            fan_in = math.prod(p.shape[1:])
-            p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
+            p.copy_(lecun_normal_(tuple(p.shape), math.prod(p.shape[1:]), generator))
         else:
             p.fill_(1.0)
 

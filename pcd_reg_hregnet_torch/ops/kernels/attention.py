@@ -4,11 +4,14 @@ plain versions, and the autograd Function that joins them.
 K3 replaces `pcd_reg_hregnet_tpu/ops/pallas/attention.py::_attn_kernel`;
 the kernel is `csrc/attention.cu`, a tiled flash kernel on the tensor cores
 (3xTF32 in f32, bf16 mma in bf16).  K3b replaces that file's `_bwd` (the
-`custom_vjp` backward); the kernel is `csrc/attention_bwd.cu` (f32 only).
-Layout is the JAX function's: q, k, v [R, H, K, d] -> out [R, H, K, d] in
-q's dtype, softmax in f32.  Both kernels take any K and d and any strides
-with a contiguous last dim; `plan` is K3's tiling.  The model goes through
-`PatchAttentionFunction`, so autograd sees every write of the kernels.
+`custom_vjp` backward); the kernel is `csrc/attention_bwd.cu` (f32 only), a
+one-launch FlashAttention-2 backward on the tensor cores (3xTF32) that
+takes each query row's log-sum-exp from the forward.  Layout is the JAX
+function's: q, k, v [R, H, K, d] -> out [R, H, K, d] in q's dtype, softmax
+in f32.  Both kernels take any K and d and any strides with a contiguous
+last dim; `plan` is K3's tiling and `plan_backward` K3b's.  The model goes
+through `PatchAttentionFunction`, so autograd sees every write of the
+kernels.
 """
 from __future__ import annotations
 
@@ -30,6 +33,12 @@ MAX_WARPS = 8                # per block: bm / 16 * split
 MAX_SMEM = 232448            # bytes of shared memory a block may opt in to
 SMS = 132                    # H100 SXM: `plan`'s default (a launch passes its card's)
 MIN_UNSPLIT = 64             # fewer blocks than this take the key split (the sweep)
+# K3b's block tilings (csrc/attention_bwd.cu kTilings): bn keys a block
+# holds, qs warps that share each 16 of them (bn / 16 * qs warps)
+BWD_TILES = ((64, 1), (64, 2), (32, 2), (32, 4), (16, 4))
+MAX_CLUSTER = 8              # K3b: key tiles of a (patch, head) that share dQ in a cluster
+MIN_BWD_BLOCKS = 96          # K3b: fewer blocks than this take smaller key tiles (the sweep)
+SM_SMEM = 233472             # shared memory of an H100 SM; a block holds 1 KB more than it asks
 _NO_CONTEXT = contextlib.nullcontext()
 
 
@@ -39,6 +48,13 @@ def patch_attention_reference(q: torch.Tensor, k: torch.Tensor,
     s = torch.einsum('rhkd,rhmd->rhkm', q.float() * scale, k.float())
     p = torch.softmax(s, dim=-1)
     return torch.einsum('rhkm,rhmd->rhkd', p, v.float()).to(q.dtype)
+
+
+def attention_lse_reference(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """Plain log-sum-exp of each query row's scaled scores, [R, H, K] f32:
+    what K3 writes for the backward when given an `lse` buffer."""
+    s = torch.einsum('rhkd,rhmd->rhkm', q.float() * scale, k.float())
+    return torch.logsumexp(s, dim=-1)
 
 
 @dataclass(frozen=True)
@@ -134,6 +150,14 @@ def _check(q, k, v, out) -> None:
                              f'{tuple(q.shape)} on {q.device}')
 
 
+def _check_lse(q, lse, what: str) -> None:
+    """lse is a contiguous f32 [R, H, K] on q's device (raises ValueError)."""
+    if (lse.shape != q.shape[:3] or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or lse.get_device() != q.get_device()):
+        raise ValueError(f'{what}: lse must be contiguous f32 {tuple(q.shape[:3])} on '
+                         f'{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}')
+
+
 @functools.cache
 def _sm_count(dev: int) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
@@ -165,11 +189,14 @@ def _launch_args(shape: tuple, dtype: torch.dtype, strides: tuple, bm: Optional[
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
             out: Optional[torch.Tensor] = None, bm: Optional[int] = None,
-            split: Optional[int] = None) -> torch.Tensor:
+            split: Optional[int] = None, lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K3 into `out` (a new contiguous tensor by default) with `bm`
     query rows per block and `split` warps per 16 rows (`plan`'s by
-    default); counts nothing."""
+    default), and each query row's log-sum-exp into `lse` when given;
+    counts nothing."""
     _check(q, k, v, out)
+    if lse is not None:
+        _check_lse(q, lse, 'patch_attention')
     dev = q.get_device()
     if out is None:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -179,19 +206,23 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     lib = build.library()
     with torch.cuda.device(dev) if dev != torch.cuda.current_device() else _NO_CONTEXT:
         err = lib.lib.pcdreg_patch_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), params, float(scale),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), params, float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
     lib.check(err, 'pcdreg_patch_attention')
     return out
 
 
 def patch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    scale: float, out: Optional[torch.Tensor] = None,
+                    lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused multi-head attention over independent patches.
 
     q, k, v: [R, H, K, d], any strides with a contiguous last dim.  The
     result goes into `out` when given (any such [R, H, K, d] view, for
     example of an [R, K, H, d] buffer), else into a new contiguous tensor.
+    `lse` (a contiguous f32 [R, H, K]), when given, receives each query
+    row's log-sum-exp of the scaled scores, which the backward takes.
     Kernel K3 on CUDA tensors, the plain version on CPU tensors.  No
     gradient flows through this call: with grad enabled, `out` is refused
     for inputs that require grad (the kernel's write into it is invisible to
@@ -202,11 +233,14 @@ def patch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError('patch_attention: out= with inputs that require grad would '
                            'write where autograd cannot see; use PatchAttentionFunction')
     if q.device.type == 'cpu':
+        if lse is not None:
+            _check_lse(q, lse, 'patch_attention')
+            lse.copy_(attention_lse_reference(q, k, scale))
         ref = patch_attention_reference(q, k, v, scale)
         return ref if out is None else out.copy_(ref)
     if q.device.type != 'cuda':
         raise ValueError(f'patch_attention: unsupported device {q.device}')
-    out = _launch(q, k, v, scale, out)
+    out = _launch(q, k, v, scale, out, lse=lse)
     patch_attention.launches += 1
     return out
 
@@ -229,10 +263,82 @@ def patch_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torc
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+@dataclass(frozen=True)
+class BackwardPlan:
+    """K3b's tiling of one call (`csrc/attention_bwd.cu` computes the same
+    `dp`, `bm`, `stages`, `cluster` and `smem`: `pcdreg_attention_bwd_plan`)."""
+    dp: int       # padded head width a block holds (8..128)
+    bn: int       # keys a block holds
+    qs: int       # warps that share each 16 keys, each taking 1/qs of every query tile
+    bm: int       # query rows per streamed tile
+    stages: int   # query tiles in the cp.async ring
+    cluster: int  # blocks per cluster, the key tiles of a (patch, head); 0 when
+                  # their dQ partials meet in device memory (scratch) instead
+    slices: int   # blocks along d: ceil(d / 128) when d > 128, else 1
+    smem: int     # dynamic shared memory bytes of a block
+    grid: tuple   # (R * H * ceil(K / bn), slices)
+    threads: int  # 32 * bn / 16 * qs
+
+
+def plan_backward(R: int, H: int, K: int, d: int, tile: Optional[tuple] = None,
+                  sms: int = SMS) -> BackwardPlan:
+    """The tiling of `patch_attention_backward` over [R, H, K, d] (f32) on a
+    card with `sms` multiprocessors.
+
+    `tile` is one of `BWD_TILES`, (bn, qs).  Without it (the choice
+    follows the sweep of `chip_smoke.py` on an H100, PERF.md): of the key
+    tiles whose blocks of a (patch, head) fit one cluster, the largest that
+    gives at least `MIN_BWD_BLOCKS` (scaled to `sms`) blocks, else the
+    smallest (a batch of one pair); with 4 warps a block, or 8 where two
+    blocks of 4 warps do not fit an SM's shared memory (latency, not
+    throughput, bounds a warp: an SM needs 8 in flight).  Shapes no tiling
+    fits in a cluster (K > 512, d > 128) take (64, 2) and the device-memory
+    dQ path.
+    """
+    wide = d > WIDE
+    dp = WIDE if wide else padded_width(d, torch.float32)
+    bm = 32 if dp == WIDE else 64
+    stages = 2
+    slices = -(-d // WIDE) if wide else 1
+    kp = -(-K // bm) * bm
+
+    def smem_of(bn, qs, cluster):
+        rows = kp if cluster else bm
+        ring = max(stages * 2 * bm, 2 * qs * bn) * (dp + 4)
+        return 4 * (2 * bn * (dp + 4) + ring + bn * (bm + 4) + 2 * rows
+                    + (kp * (dp + 4) if cluster else 0))
+
+    def clustered(bn, qs):
+        return not wide and -(-K // bn) <= MAX_CLUSTER and smem_of(bn, qs, True) <= MAX_SMEM
+
+    if tile is None:
+        fits = [t for t in BWD_TILES if clustered(*t)]
+        if fits:
+            keys = sorted({bn for bn, _ in fits}, reverse=True)
+            want = MIN_BWD_BLOCKS * sms // SMS
+            bn = next((b for b in keys if R * H * -(-K // b) >= want), keys[-1])
+            four = next(t for t in fits if t[0] == bn and t[0] // 16 * t[1] == 4)
+            eight = [t for t in fits if t[0] == bn and t[0] // 16 * t[1] == 8]
+            crowded = 2 * (smem_of(*four, True) + 1024) > SM_SMEM
+            tile = eight[0] if eight and crowded else four
+        else:
+            tile = (64, 2)
+    if tile not in BWD_TILES:
+        raise ValueError(f'patch_attention_backward: no kernel for tiling {tile} (one of '
+                         f'{BWD_TILES})')
+    bn, qs = tile
+    ntk = -(-K // bn)
+    cl = clustered(bn, qs)
+    return BackwardPlan(dp, bn, qs, bm, stages, ntk if cl else 0, slices, smem_of(bn, qs, cl),
+                        (R * H * ntk, slices), 2 * bn * qs)
+
+
 @functools.lru_cache(maxsize=1024)
-def _backward_args(shape: tuple, dtype: torch.dtype, strides: tuple):
+def _backward_args(shape: tuple, dtype: torch.dtype, strides: tuple, tile: Optional[tuple],
+                   dev: int):
     """Validate what K3b takes of one layout (raises ValueError) and return
-    its parameter array; cached per layout."""
+    its `plan_backward` on device `dev` and its parameter array; cached per
+    layout."""
     if len(shape) != 4:
         raise ValueError(f'patch_attention_backward takes [R, H, K, d], got {shape}')
     if dtype != torch.float32:
@@ -243,46 +349,66 @@ def _backward_args(shape: tuple, dtype: torch.dtype, strides: tuple):
         if d > 1 and st[3] != 1:
             raise ValueError(f'patch_attention_backward kernel takes a contiguous last '
                              f'dim, got {name} strides {st}')
-    if R * H * -(-K // 32) >= 2 ** 31:
-        raise ValueError(f'patch_attention_backward kernel: R*H*ceil(K/32) must be '
+    if R * H * -(-K // 16) >= 2 ** 31:
+        raise ValueError(f'patch_attention_backward kernel: R*H*ceil(K/16) must be '
                          f'< 2**31, got shape {shape}')
-    return (ctypes.c_longlong * 28)(*(x for st in strides for x in st[:3]), *shape)
+    if tile is not None and tile not in BWD_TILES:
+        raise ValueError(f'patch_attention_backward: no kernel for tiling {tile} (one of '
+                         f'{BWD_TILES})')
+    p = plan_backward(R, H, K, d, tile, _sm_count(dev))
+    params = (ctypes.c_longlong * 30)(*(x for st in strides for x in st[:3]), *shape, p.bn,
+                                      p.qs)
+    return p, params
 
 
-def _launch_backward(q, k, v, o, g, scale: float, out=None):
-    """Launch K3b: (dq, dk, dv) into `out` (new contiguous tensors by
-    default); counts nothing."""
+def _launch_backward(q, k, v, o, g, scale: float, out, lse, tile=None):
+    """Launch K3b: (dq, dk, dv) into `out` (new contiguous tensors when
+    None), with the block tiling `tile` (`plan_backward`'s by default);
+    `lse` is the forward's log-sum-exp of each query row.  Counts
+    nothing."""
     for name, t in (('k', k), ('v', v), ('o', o), ('g', g), *zip(
             ('dq', 'dk', 'dv'), out or ())):
         if (t.shape != q.shape or t.dtype != q.dtype or t.get_device() != q.get_device()):
             raise ValueError(f'patch_attention_backward: {name} {t.dtype} '
                              f'{tuple(t.shape)} on {t.device} does not match q '
                              f'{q.dtype} {tuple(q.shape)} on {q.device}')
+    if lse is None:
+        raise ValueError('patch_attention_backward kernel takes the forward\'s lse '
+                         '(patch_attention(..., lse=))')
+    _check_lse(q, lse, 'patch_attention_backward')
     if out is None:
         out = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
     ts = (q, k, v, o, g, *out)
-    params = _backward_args(tuple(q.shape), q.dtype, tuple(t.stride() for t in ts))
     dev = q.get_device()
-    scratch = torch.empty((2, q.shape[0] * q.shape[1] * q.shape[2]), dtype=torch.float32,
-                          device=q.device)
+    p, params = _backward_args(tuple(q.shape), q.dtype, tuple(t.stride() for t in ts), tile,
+                               dev)
+    R, H, K, d = q.shape
+    part = ticket = None
+    if not p.cluster:   # the dQ partials meet in device memory
+        part = torch.empty(p.grid[0] * K * d, dtype=torch.float32, device=q.device)
+        ticket = torch.zeros(R * H * p.slices, dtype=torch.int32, device=q.device)
     lib = build.library()
     with torch.cuda.device(dev) if dev != torch.cuda.current_device() else _NO_CONTEXT:
         err = lib.lib.pcdreg_patch_attention_bwd(
-            *(t.data_ptr() for t in ts), scratch[0].data_ptr(), scratch[1].data_ptr(),
-            params, float(scale), torch.cuda.current_stream(dev).cuda_stream)
+            *(t.data_ptr() for t in ts[:5]), lse.data_ptr(), *(t.data_ptr() for t in out),
+            None if part is None else part.data_ptr(),
+            None if ticket is None else ticket.data_ptr(), params, float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
     lib.check(err, 'pcdreg_patch_attention_bwd')
     return out
 
 
 def patch_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              o: torch.Tensor, g: torch.Tensor, scale: float,
-                             out: Optional[tuple] = None) -> tuple:
+                             out: Optional[tuple] = None,
+                             lse: Optional[torch.Tensor] = None) -> tuple:
     """(dq, dk, dv) of `patch_attention(q, k, v, scale)` = o for the output
     gradient g, all [R, H, K, d] with a contiguous last dim (any other
     strides).  Written into `out` = (dq, dk, dv) views when given, else new
-    contiguous tensors.  Kernel K3b (two launches: dq, then dk and dv) on
-    CUDA f32 tensors, the plain version on CPU tensors (which does not
-    read o)."""
+    contiguous tensors.  `lse`: the forward's log-sum-exp of each query row
+    (`patch_attention(..., lse=)`), contiguous f32 [R, H, K], which the
+    kernel requires.  Kernel K3b (one launch) on CUDA f32 tensors, the
+    plain version on CPU tensors (which reads neither o nor lse)."""
     if q.device.type == 'cpu':
         ref = patch_attention_backward_reference(q, k, v, g, scale)
         if out is None:
@@ -292,7 +418,7 @@ def patch_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     if q.device.type != 'cuda':
         raise ValueError(f'patch_attention_backward: unsupported device {q.device}')
-    out = _launch_backward(q, k, v, o, g, scale, out)
+    out = _launch_backward(q, k, v, o, g, scale, out, lse)
     patch_attention_backward.launches += 1
     return out
 
@@ -315,24 +441,27 @@ class PatchAttentionFunction(torch.autograd.Function):
     `out`; the backward through `patch_attention_backward` (K3b on CUDA, the
     plain backward on CPU), which writes dq, dk and dv as views of one
     [R, K, 3, H, d] gradient, so the projection's backward takes it with no
-    copy.  Saves qkv and out.
+    copy.  Saves qkv, out and, when qkv needs a gradient, each query row's
+    log-sum-exp [R, H, K] f32, which the forward writes for K3b.
     """
 
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, scale: float) -> torch.Tensor:
         R, K, _, H, d = qkv.shape
         out = torch.empty((R, K, H, d), dtype=qkv.dtype, device=qkv.device)
-        patch_attention(*unpack_qkv(qkv), scale, out=out.transpose(1, 2))
-        ctx.save_for_backward(qkv, out)
+        lse = (torch.empty((R, H, K), dtype=torch.float32, device=qkv.device)
+               if ctx.needs_input_grad[0] else None)
+        patch_attention(*unpack_qkv(qkv), scale, out=out.transpose(1, 2), lse=lse)
+        ctx.save_for_backward(qkv, out, lse)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        qkv, out = ctx.saved_tensors
+        qkv, out, lse = ctx.saved_tensors
         if grad.stride(-1) != 1:
             grad = grad.contiguous()
         dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
         patch_attention_backward(*unpack_qkv(qkv), out.transpose(1, 2), grad.transpose(1, 2),
-                                 ctx.scale, out=unpack_qkv(dqkv))
+                                 ctx.scale, out=unpack_qkv(dqkv), lse=lse)
         return dqkv, None

@@ -73,14 +73,18 @@ class KernelLibrary:
         lib.pcdreg_fps_config.argtypes = [ci, pi, pi, pi]
         lib.pcdreg_fps_config.restype = ci
         lib.pcdreg_patch_attention.argtypes = [
-            vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, vp]
+            vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, vp]
         lib.pcdreg_patch_attention.restype = ci
         lib.pcdreg_patch_attention_bwd.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),
             ctypes.c_float, vp]
         lib.pcdreg_patch_attention_bwd.restype = ci
         lib.pcdreg_attention_plan.argtypes = [ci, ci, ci, ci, pi, pi, pi]
         lib.pcdreg_attention_plan.restype = ci
+        lib.pcdreg_attention_bwd_plan.argtypes = [ci, ci, ci, ci, pi, pi, pi, pi]
+        lib.pcdreg_attention_bwd_plan.restype = ci
+        lib.pcdreg_attention_bwd_tiling.argtypes = [ci, pi, pi]
+        lib.pcdreg_attention_bwd_tiling.restype = ci
         lib.pcdreg_error_string.argtypes = [ci]
         lib.pcdreg_error_string.restype = ctypes.c_char_p
 

@@ -1,6 +1,7 @@
-"""Times of patch attention (kernel K3) at the serving forward's shapes.
+"""Times of patch attention (kernel K3) at the serving forward's shapes,
+and of its backward (kernel K3b) at the train step's.
 
-    python3 -m pcd_reg_hregnet_torch.time_attention [--reps 20]
+    python3 -m pcd_reg_hregnet_torch.time_attention [--reps 20] [--backward]
 
 For each [R, H, K, d] of the `model_v6` forward (patch sizes 256/128/64,
 channels 64/128/256, heads 2/4/8) at B=8 and B=1 (R = 4B), f32 and bf16,
@@ -13,11 +14,22 @@ it); and `plain_ms`, the plain version's device time.  It uses only the
 public `patch_attention(q, k, v, scale)`, so copied into another
 checkout's package it times that checkout's kernel the same way (the A/B
 of PERF.md).  `chip_smoke.py` times K3 with the same two functions at the
-same shapes.  Needs a CUDA device.
+same shapes.
+
+With `--backward`, for each f32 shape at B=8 and B=1: the backward of
+`ops.kernels.attention.PatchAttentionFunction` alone (`torch.autograd.grad`
+of a forward kept with `retain_graph`, which launches K3b and nothing
+else), as device time (`ms`) and back to back (`call_ms`), and forward and
+backward together (`fwd_bwd_ms`, `fwd_bwd_call_ms`); then one line of
+per-B=8-train-step sums (each shape runs twice per tower).  It uses only
+`PatchAttentionFunction.apply(qkv, scale)` and autograd, so copied into
+another checkout it times that checkout's backward the same way (the A/B
+of PERF.md), whatever arguments its kernels take.  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 
 import torch
@@ -35,16 +47,18 @@ def shapes(B: int) -> list:
     return [(4 * B, H, K, C // H) for K, C in LEVELS for H in HEADS]
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, stream=None) -> float:
     """Device time of one `fn()` in ms: `reps` calls captured in a CUDA
-    graph, replayed after a warm-up, timed with CUDA events."""
-    side = torch.cuda.Stream()
+    graph (on `stream` when given: a backward must be captured on the
+    stream its forward ran on), replayed after a warm-up, timed with CUDA
+    events."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):   # warm-up outside the capture
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -58,27 +72,62 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / (5 * reps)
 
 
-def call_ms(fn, reps: int) -> float:
-    """Time of one `fn()` in ms as issued back to back from Python."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+def call_ms(fn, reps: int, stream=None) -> float:
+    """Time of one `fn()` in ms as issued back to back from Python (on
+    `stream` when given)."""
+    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
         fn()
-    end.record()
-    end.synchronize()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def backward_times(R: int, H: int, K: int, d: int, gen: torch.Generator, reps: int) -> dict:
+    """Times of `PatchAttentionFunction`'s backward at [R, H, K, d] (f32)."""
+    qkv = torch.randn((R, K, 3, H, d), generator=gen).cuda().requires_grad_()
+    g = torch.randn((R, K, H, d), generator=gen).cuda()
+    s = d ** -0.5
+    side = torch.cuda.Stream()   # autograd runs the backward on the forward's stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = kattn.PatchAttentionFunction.apply(qkv, s)
+
+    def bwd():
+        return torch.autograd.grad(out, qkv, g, retain_graph=True)
+
+    def both():
+        return torch.autograd.grad(kattn.PatchAttentionFunction.apply(qkv, s), qkv, g)
+    return {'ms': device_ms(bwd, reps, side), 'call_ms': call_ms(bwd, reps, side),
+            'fwd_bwd_ms': device_ms(both, reps), 'fwd_bwd_call_ms': call_ms(both, reps)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--reps', type=int, default=20)
+    ap.add_argument('--backward', action='store_true',
+                    help='time the backward (K3b) through PatchAttentionFunction')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('time_attention needs a CUDA device')
     gen = torch.Generator().manual_seed(0)
+    if args.backward:
+        step = {}
+        with fp32_numerics():
+            for B in (8, 1):
+                for R, H, K, d in shapes(B):
+                    t = backward_times(R, H, K, d, gen, args.reps)
+                    print(json.dumps({'B': B, 'K': K, 'd': d, 'H': H, **t}), flush=True)
+                    if B == 8:   # two PTv3 blocks per stage, two towers
+                        for key, x in t.items():
+                            step[key] = step.get(key, 0.0) + 4 * x
+        print(json.dumps({'per_B8_step': step}), flush=True)
+        return 0
     with fp32_numerics():
         for B in (8, 1):
             for R, H, K, d in shapes(B):

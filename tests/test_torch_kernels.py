@@ -302,3 +302,86 @@ class TestAttentionPlan:
         assert (kattn.plan(*shape).bm, kattn.plan(*shape).split) == (128, 1)
         assert kattn.plan(*shape, sms=kattn.SMS) == kattn.plan(*shape)
         assert (kattn.plan(*shape, sms=200).bm, kattn.plan(*shape, sms=200).split) == (64, 1)
+
+
+
+# every ATTN_OPENED shape of chip_smoke.py, for the backward's tiling
+BWD_OPENED = [(2, 2, 1024, 32), (4, 2, 256, 128), (4, 3, 64, 24), (2, 2, 64, 256),
+              (4, 2, 100, 16), (2, 3, 100, 5), (1, 1, 1, 1), (2, 1, 33, 300)]
+
+
+class TestAttentionBackwardPlan:
+    """`plan_backward`, K3b's tiling (the kernel reports the same through
+    `pcdreg_attention_bwd_plan`, checked on the card by chip_smoke.py)."""
+
+    def test_tilings_match_cuda_source(self):
+        src = (Path(kattn.__file__).resolve().parents[2] / 'csrc' / 'attention_bwd.cu').read_text()
+        body = src[src.index('kTilings[] = {'):]
+        body = body[:body.index('};')]
+        rows = tuple(tuple(map(int, r)) for r in re.findall(r'\{(\d+), (\d+)\}', body))
+        assert rows == kattn.BWD_TILES
+
+    @pytest.mark.parametrize('shape', PRODUCTION_SHAPES + BWD_OPENED
+                             + [(3, 1, 17, 129), (1, 1, 513, 8), (2, 2, 512, 64)])
+    def test_tiles_cover_k_and_d(self, shape):
+        R, H, K, d = shape
+        for tile in [None, *kattn.BWD_TILES]:
+            p = kattn.plan_backward(R, H, K, d, tile)
+            assert (p.bn, p.qs) in kattn.BWD_TILES and (tile is None or tile == (p.bn, p.qs))
+            ntk = p.grid[0] // (R * H)
+            assert p.grid[0] == R * H * ntk and p.bn * (ntk - 1) < K <= p.bn * ntk
+            assert p.cluster in (0, ntk) and p.cluster <= kattn.MAX_CLUSTER
+            assert p.threads == 32 * p.bn // 16 * p.qs <= 256
+            assert p.slices == (-(-d // kattn.WIDE) if d > kattn.WIDE else 1) == p.grid[1]
+            assert p.slices * p.dp >= d and (p.slices - 1) * p.dp < d
+            assert p.dp == min(w for w in (8, 16, 32, 64, 128) if w >= min(d, kattn.WIDE))
+            assert p.bm * p.stages <= 256 and p.smem <= 232448
+            # the dQ partials meet in a cluster wherever they can
+            assert (p.cluster > 0) == (d <= kattn.WIDE and ntk <= kattn.MAX_CLUSTER
+                                       and p.smem <= 232448 and p.smem > 0
+                                       and p.cluster == ntk)
+
+    def test_production_shapes_take_a_cluster(self):
+        for R, H, K, d in PRODUCTION_SHAPES:
+            p = kattn.plan_backward(R, H, K, d)
+            assert 1 <= p.cluster <= kattn.MAX_CLUSTER
+
+    def test_small_batches_get_more_blocks(self):
+        for R, H, K, d in PRODUCTION_SHAPES:
+            p = kattn.plan_backward(R, H, K, d)
+            fits = [kattn.plan_backward(R, H, K, d, t) for t in kattn.BWD_TILES]
+            most = max(f.grid[0] for f in fits if f.cluster)
+            if R == 4:   # one pair: the most blocks a cluster allows, or enough of them
+                assert p.grid[0] == most or p.grid[0] >= kattn.MIN_BWD_BLOCKS
+                assert p.grid[0] >= 32
+            else:        # B = 8: the largest key tile that gives enough blocks
+                assert p.grid[0] >= kattn.MIN_BWD_BLOCKS and p.bn == 64 or (
+                    K == 64 and d == 128 and p.bn == 32)
+
+    def test_eight_warps_where_two_blocks_of_four_do_not_fit(self):
+        for R, H, K, d in PRODUCTION_SHAPES:
+            p = kattn.plan_backward(R, H, K, d)
+            four = next(t for t in kattn.BWD_TILES if t[0] == p.bn and t[0] // 16 * t[1] == 4)
+            crowded = 2 * (kattn.plan_backward(R, H, K, d, four).smem + 1024) > kattn.SM_SMEM
+            assert p.threads == (256 if crowded and p.bn > 16 else 128)
+
+    def test_follows_the_sm_count(self):
+        shape = (4, 4, 128, 32)   # one pair: 128 blocks of 16 keys on 132 SMs, 64 on 66
+        assert kattn.plan_backward(*shape).bn == 16
+        assert kattn.plan_backward(*shape, sms=66).bn == 32
+
+    @pytest.mark.parametrize('bad', ['tile', 'lse_shape', 'lse_dtype'])
+    def test_launch_validates_before_building(self, bad, monkeypatch):
+        def no_build():
+            raise AssertionError('built before validating')
+        monkeypatch.setattr(kbuild, 'library', no_build)
+        q = torch.zeros(1, 1, 16, 8)
+        lse, tile = torch.zeros(1, 1, 16), None
+        if bad == 'tile':
+            tile = (64, 4)
+        elif bad == 'lse_shape':
+            lse = torch.zeros(1, 16)
+        else:
+            lse = lse.double()
+        with pytest.raises(ValueError):
+            kattn._launch_backward(q, q, q, q, q, 1.0, None, lse, tile)

@@ -122,6 +122,38 @@ class TestAttentionBackward:
         for a, b in zip(kattn.unpack_qkv(buf), want):
             np.testing.assert_allclose(a.numpy(), b, **BWD_TOL)
 
+    @pytest.mark.parametrize('shape', [BWD_SHAPES[0], BWD_SHAPES[4], BWD_SHAPES[8],
+                                       BWD_SHAPES[9], BWD_SHAPES[10]])
+    def test_function_saves_the_log_sum_exp_of_the_jax_scores(self, shape):
+        """The forward keeps each query row's log-sum-exp for K3b: on the
+        CPU the plain one, equal to `jax.nn.logsumexp` of `_dense_reference`'s
+        scores (f32, other summation orders)."""
+        q, k, v, _ = _qkvg(4, shape)
+        scale = shape[-1] ** -0.5
+        s = jnp.einsum('rhkd,rhmd->rhkm', jnp.asarray(q) * scale, jnp.asarray(k))
+        want = np.asarray(jax.nn.logsumexp(s, axis=-1))
+        qkv = torch.from_numpy(np.stack([q, k, v], 0)).permute(1, 3, 0, 2, 4).contiguous()
+        out = kattn.PatchAttentionFunction.apply(qkv.requires_grad_(), scale)
+        saved_qkv, saved_out, lse = out.grad_fn.saved_tensors
+        assert lse.shape == shape[:3] and lse.dtype == torch.float32
+        np.testing.assert_allclose(lse.numpy(), want, rtol=1e-6, atol=1e-6)
+        buf = torch.empty(shape[:3])
+        kattn.patch_attention(*map(torch.from_numpy, (q, k, v)), scale, lse=buf)
+        assert torch.equal(buf, lse)
+        # the plain backward reads no lse: the same gradients with it and without
+        g = torch.from_numpy(_qkvg(5, shape)[0])
+        args = (*map(torch.from_numpy, (q, k, v)), saved_out.transpose(1, 2), g, scale)
+        for a, b in zip(kattn.patch_attention_backward(*args, lse=lse),
+                        kattn.patch_attention_backward(*args)):
+            assert torch.equal(a, b)
+
+    def test_no_log_sum_exp_without_a_gradient(self):
+        qkv = torch.from_numpy(np.stack(_qkvg(6, (2, 2, 16, 8))[:3], 0)).permute(1, 3, 0, 2, 4)
+        out = kattn.PatchAttentionFunction.apply(qkv.contiguous(), 0.5)
+        assert out.grad_fn is None   # no graph, and the forward wrote no lse
+        with pytest.raises(ValueError, match='lse'):
+            kattn.patch_attention(*kattn.unpack_qkv(qkv), 0.5, lse=torch.empty(2, 16, 2))
+
     def test_cpu_wrapper_counts_no_launch_and_validates(self, monkeypatch):
         q, k, v, g = map(torch.from_numpy, _qkvg(3, (2, 2, 16, 8)))
         n = kattn.patch_attention_backward.launches
@@ -131,12 +163,16 @@ class TestAttentionBackward:
         def no_build():
             raise AssertionError('built before validating')
         monkeypatch.setattr(kattn.build, 'library', no_build)
+        lse = torch.zeros(2, 2, 16)
         with pytest.raises(ValueError, match='f32'):
-            kattn._launch_backward(*(t.bfloat16() for t in (q, k, v, q, g)), 0.5)
+            kattn._launch_backward(*(t.bfloat16() for t in (q, k, v, q, g)), 0.5, None, lse)
         with pytest.raises(ValueError, match='contiguous last dim'):
-            kattn._launch_backward(q, k, torch.zeros(2, 2, 16, 16)[..., ::2], q, g, 0.5)
+            kattn._launch_backward(q, k, torch.zeros(2, 2, 16, 16)[..., ::2], q, g, 0.5, None,
+                                   lse)
         with pytest.raises(ValueError, match='does not match'):
-            kattn._launch_backward(q, k, v, q, torch.zeros(2, 2, 16, 4), 0.5)
+            kattn._launch_backward(q, k, v, q, torch.zeros(2, 2, 16, 4), 0.5, None, lse)
+        with pytest.raises(ValueError, match='lse'):
+            kattn._launch_backward(q, k, v, q, g, 0.5, None, None)
 
 
 class TestAttentionGradient:
