@@ -76,14 +76,30 @@ Phases, each printing its own line with seconds:
    weights (keypoints identical at every level, else the next batch; loss
    within `TRAIN_LOSS_TOL`, each gradient within `TRAIN_GRAD_TOL` of the
    global norm); and a checkpoint round trip whose next step equals the
-   step without it.
+   step without it;
+7. a1_serve: phase 4 for the trained A1 checkpoint, `model_v2` (conv
+   descriptors, FineReg2 MI outputs) with the weights of
+   `port_assets/r4_v6_50_best_rre.npz` (the JAX package's `reg_v6`):
+   launches exactly K1 2, K2 4, K3 0, K3b 0 per forward;
+8. a1_eval: phase 5 for the same checkpoint, against
+   `port_assets/v6_r4_eval_jax_cpu.json`, with at most
+   `A1_EVAL_MAX_OUTSIDE` pairs outside the per-pair gate per layer;
+9. a1_train: phase 6 for `reg_v6` (Tf + chamfer + MI, AdamW, OneCycle,
+   clip 1.0) from the same checkpoint, the MI discriminators included: the
+   tf, chamfer and MI terms finite at every step, and the checkpoint round
+   trip carrying the discriminators and their optimizer state;
+10. presets: every other registration experiment (`PRESETS`) with seeded
+   weights at full width: one B=8 forward through `serve.register` and one
+   train step each, launches exactly as the preset implies (K3 and K3b
+   only on `model_v6`, K3b only for the levels an optimised loss reaches),
+   poses, loss terms (under their JAX names) and gradient norm finite.
 
 Ends with a JSON line of per-kernel numbers, the card's name and power
 limit, the total seconds, and the result line.  In the JSON line, `ms`,
 `plain_ms`, `bound_ms` and `library_ms` add up the kernel's calls in one
 B=8 pair-forward (both towers; for K3b, the backward of one B=8 train
 step); `launches` is the sum of the counts over the main paths of phases
-4, 5 and 6, each counted from 0.  Exits non-zero, with no
+4-10, each counted from 0.  Exits non-zero, with no
 result line, when there is no CUDA device or any phase fails.
 """
 from __future__ import annotations
@@ -134,6 +150,16 @@ EVAL_REFERENCE = 'port_assets/v11_r5_eval_jax_cpu.json'
 # tools/compare_evals.py).  The coarse limit is those 12 plus the 2 the
 # finer layers allow; a defect flips many more, and moves the summary.
 EVAL_MAX_OUTSIDE = {'layer_0': 14, 'layer_1': 2, 'layer_2': 2, 'layer_3': 2}
+# The trained A1 checkpoint (reg_v6, model_v2) against the JAX package's CPU
+# eval of it.  Limits set as the flagship's: the port's CPU eval against the
+# same file puts 3 pairs outside at layer_0, 1 at layer_1 and 0 at layer_2
+# (tools/compare_evals.py; weighted-FPS near-ties as for the flagship); the
+# coarse limit is those 3 plus the 2 the finer layers allow.
+A1_EVAL_REFERENCE = 'port_assets/v6_r4_eval_jax_cpu.json'
+A1_EVAL_MAX_OUTSIDE = {'layer_0': 5, 'layer_1': 2, 'layer_2': 2, 'layer_3': 2}
+# every other registration experiment, seeded weights at full width
+PRESETS = ('reg_v0', 'reg_v1', 'reg_v2', 'reg_v3', 'reg_v4', 'reg_v5', 'reg_v7', 'reg_v8',
+           'reg_v9', 'reg_v10', 'reg_v12', 'reg_v13', 'baseline')
 # K3b against its plain backward: max |err| of each of dq, dk, dv over that
 # tensor's max |value| (f32 sums in another order; the forward's 1e-5 is
 # absolute on outputs of order 1, gradients reach ~1e2 at K = 256)
@@ -652,17 +678,32 @@ def check_attention_backward(torch, lib, kattn, gen, t0) -> dict:
 
 def per_forward_launches(cfg) -> dict:
     """Each kernel's launches in one pair-forward (both towers)."""
+    attn = TOWERS * len(cfg.levels) * sum(cfg.ptv3_depths) if cfg.backbone == 'ptv3' else 0
     return {'fps': TOWERS,
             'weighted_fps': TOWERS * (len(cfg.levels) - 1),
-            'patch_attention': TOWERS * len(cfg.levels) * sum(cfg.ptv3_depths),
+            'patch_attention': attn,
             'patch_attention_bwd': 0}
 
 
 def per_step_launches(cfg) -> dict:
-    """Each kernel's launches in one train step: a pair-forward and the
-    backward of each attention."""
-    per = per_forward_launches(cfg)
-    return dict(per, patch_attention_bwd=per['patch_attention'])
+    """Each kernel's launches in one train step of the experiment `cfg`: a
+    pair-forward, and the backward of each attention whose level reaches an
+    optimised loss.  A level's PTv3 descriptors reach the pose loss through
+    its own correspondences; with the pose loss detached, the chamfer loss
+    (the coarse pose moves the L2 keypoints) and the circle loss reach L3
+    only, the MI loss L3 and L2 (FineReg2's inputs follow the coarse pose),
+    or L3 alone when it comes from the coarse level."""
+    per = per_forward_launches(cfg.model)
+    lc = cfg.loss
+    levels = set()
+    if lc.transformation and not lc.detach_transformation:
+        levels |= {1, 2, 3}
+    if lc.chamfer or lc.circle:
+        levels |= {3}
+    if lc.mi:
+        levels |= {3} if cfg.model.mi_from_coarse else {2, 3}
+    per_level = per['patch_attention'] // len(cfg.model.levels)
+    return dict(per, patch_attention_bwd=per_level * len(levels))
 
 
 def kernel_wrappers() -> dict:
@@ -696,20 +737,24 @@ def synthetic_pairs(n: int):
     return pairs
 
 
-def serve_phase(torch, t0) -> dict:
+def serve_phase(torch, t0, phase: str, name: str, weights) -> dict:
+    """A trained checkpoint through the serving entry points on the card:
+    two `infer_pair`, one with point-to-plane ICP, one B=8 `register`
+    (counted), forward times, and the card's B=1 poses against the port's
+    CPU forward."""
     from pcd_reg_hregnet_torch import serve
     from pcd_reg_hregnet_torch.data.pipeline import range_filter, resample
     from pcd_reg_hregnet_torch.models import zoo
     from pcd_reg_hregnet_torch.ops.sampling import fps
-    from pcd_reg_hregnet_torch.utils.checkpoint import FLAGSHIP
 
-    model = zoo.build('model_v6', device='cuda', weights=FLAGSHIP)
+    model = zoo.build(name, device='cuda', weights=weights)
     cfg = model.cfg
     per_forward = per_forward_launches(cfg)
     wrappers = kernel_wrappers()
-    log('serve', t0, f'model_v6 built on the card with the trained weights of {FLAGSHIP.name}: '
-        f'{sum(p.numel() for p in model.parameters())} parameters, levels '
-        f'{[lvl.nsample for lvl in cfg.levels]}, depths {cfg.ptv3_depths}')
+    log(phase, t0, f'{name} ({cfg.backbone} backbone) built on the card with the trained weights '
+        f'of {weights.name}: {sum(p.numel() for p in model.parameters())} parameters, levels '
+        f'{[lvl.nsample for lvl in cfg.levels]}'
+        + (f', depths {cfg.ptv3_depths}' if cfg.backbone == 'ptv3' else ''))
     raw_pairs = synthetic_pairs(3)
     rng = np.random.default_rng(7)
     batch = [make_clouds(rng, N_POINTS) for _ in range(BATCH)]
@@ -727,7 +772,7 @@ def serve_phase(torch, t0) -> dict:
     main_s = time.perf_counter() - t_main
     launches = {k: w.launches for k, w in wrappers.items()}
     forwards = len(raw_pairs) + 1
-    log('serve', t0, f'{len(raw_pairs)} infer_pair (one with point-to-plane ICP) + 1 '
+    log(phase, t0, f'{len(raw_pairs)} infer_pair (one with point-to-plane ICP) + 1 '
         f'register(B={BATCH}) in {main_s:.2f} s; launches {launches}')
     check_launches(launches, per_forward, forwards)
     for p in poses + [pose_icp]:
@@ -736,7 +781,7 @@ def serve_phase(torch, t0) -> dict:
     T_icp = np.asarray(pose_icp['transform_icp'])
     if T_icp.shape != (4, 4) or not np.all(np.isfinite(T_icp)):
         raise AssertionError(f'infer_pair(icp=point_to_plane): transform_icp {T_icp}')
-    log('serve', t0, f'infer_pair with ICP: transform_icp finite, '
+    log(phase, t0, f'infer_pair with ICP: transform_icp finite, '
         f'{"refined" if np.abs(T_icp - np.asarray(pose_icp["transform"])).max() > 0 else "kept"}'
         f' by the trust gate')
     R8, t8 = out8['rotation'], out8['translation']
@@ -744,7 +789,7 @@ def serve_phase(torch, t0) -> dict:
         raise AssertionError(f'register shapes {tuple(R8.shape)} {tuple(t8.shape)}')
     if not (torch.isfinite(R8).all() and torch.isfinite(t8).all()):
         raise AssertionError('non-finite pose from register')
-    log('serve', t0, f'poses finite; per forward +{per_forward["fps"]} fps, '
+    log(phase, t0, f'poses finite; per forward +{per_forward["fps"]} fps, '
         f'+{per_forward["weighted_fps"]} weighted_fps, '
         f'+{per_forward["patch_attention"]} patch_attention')
 
@@ -766,7 +811,7 @@ def serve_phase(torch, t0) -> dict:
     for b, (src, dst) in ((BATCH, (src8_d, dst8_d)),
                           (1, (src8_d[:1].contiguous(), dst8_d[:1].contiguous()))):
         lo, med, hi = timed(src, dst, SERVE_REPS)
-        log('serve', t0, f'forward B={b}: median {med:.1f} ms ({b / med * 1e3:.1f} pairs/s), '
+        log(phase, t0, f'forward B={b}: median {med:.1f} ms ({b / med * 1e3:.1f} pairs/s), '
             f'min {lo:.1f}, max {hi:.1f} over {SERVE_REPS} forwards after one warm-up '
             f'(host clock; indicative only)')
 
@@ -777,7 +822,7 @@ def serve_phase(torch, t0) -> dict:
         pts, _ = range_filter(pts, 80.0)
         pts, _ = resample(pts, N_POINTS, rng_p)
         prep.append(pts[None])
-    cpu_model = zoo.build('model_v6', device='cpu', weights=FLAGSHIP)
+    cpu_model = zoo.build(name, device='cpu', weights=weights)
     threads = torch.get_num_threads()
     torch.set_num_threads(CPU_THREADS)
     try:
@@ -797,7 +842,7 @@ def serve_phase(torch, t0) -> dict:
     def dxyz(lvl):
         return max(float((out_gpu[s][f'xyz_{lvl}'].cpu() - out_cpu[s][f'xyz_{lvl}']).abs().max())
                    for s in ('src_feats', 'dst_feats'))
-    log('serve', t0, 'keypoints card vs CPU, max|dxyz| (m; a keypoint chosen differently '
+    log(phase, t0, 'keypoints card vs CPU, max|dxyz| (m; a keypoint chosen differently '
         'shows at its level and the coarser ones): '
         + ', '.join(f'L{lvl} {dxyz(lvl):.2e}' for lvl in (1, 2, 3)))
     worst_r = worst_t = 0.0
@@ -806,17 +851,17 @@ def serve_phase(torch, t0) -> dict:
         dr = float((Rg.cpu() - Rc).abs().max())
         dt = float((tg.cpu() - tc).abs().max())
         worst_r, worst_t = max(worst_r, dr), max(worst_t, dt)
-        log('serve', t0, f'level {3 - lvl}: card vs CPU max|dR| {dr:.2e}, max|dt| {dt:.2e} m')
+        log(phase, t0, f'level {3 - lvl}: card vs CPU max|dR| {dr:.2e}, max|dt| {dt:.2e} m')
     if not (worst_r <= POSE_TOL_R and worst_t <= POSE_TOL_T):
         raise AssertionError(f'card vs CPU poses: |dR| {worst_r} (tol {POSE_TOL_R}), '
                              f'|dt| {worst_t} (tol {POSE_TOL_T})')
-    log('serve', t0, f'L1 FPS indices identical card vs CPU; poses within '
+    log(phase, t0, f'L1 FPS indices identical card vs CPU; poses within '
         f'{POSE_TOL_R} / {POSE_TOL_T} m (CPU forward {cpu_s:.1f} s on {CPU_THREADS} '
         f'threads)')
     return launches
 
 
-def eval_breakdown(torch, t0, cfg, meta, batches: int) -> None:
+def eval_breakdown(torch, t0, phase, cfg, weights, meta, batches: int) -> None:
     """Where the eval's time goes, per B=8 batch: host generation of the
     pairs (a fresh source, so no pair comes from its cache), the network
     forward and ICP (CUDA events; indicative)."""
@@ -824,13 +869,12 @@ def eval_breakdown(torch, t0, cfg, meta, batches: int) -> None:
     from pcd_reg_hregnet_torch.eval.icp import refine
     from pcd_reg_hregnet_torch.eval.runner import load_model
     from pcd_reg_hregnet_torch.geometry import se3
-    from pcd_reg_hregnet_torch.utils.checkpoint import FLAGSHIP
 
     ds = load_dataset(cfg.data, 'test', length=cfg.data.batch_size)
     t = time.perf_counter()
     batch = next(batch_iterator(ds, cfg.data.batch_size))
     data_s = time.perf_counter() - t
-    model = load_model(cfg, FLAGSHIP, 'cuda')
+    model = load_model(cfg, weights, 'cuda')
     src = torch.from_numpy(batch['uncalibed_pcd']).cuda()
     dst = torch.from_numpy(batch['pcd_left']).cuda()
     with torch.no_grad():
@@ -840,27 +884,32 @@ def eval_breakdown(torch, t0, cfg, meta, batches: int) -> None:
         fwd_ms = cuda_ms(torch, lambda: model(src, dst), 3)
     icp_ms = cuda_ms(torch, lambda: refine(src, dst, pose, meta['icp'], meta['icp_threshold'],
                                            meta['icp_iters']), 3)
-    log('eval', t0, f'per B={cfg.data.batch_size} batch (indicative): pair generation on the '
+    log(phase, t0, f'per B={cfg.data.batch_size} batch (indicative): pair generation on the '
         f'host {data_s * 1e3:.0f} ms, forward {fwd_ms:.1f} ms, {meta["icp"]} ICP '
         f'{icp_ms:.1f} ms (CUDA events); x {batches} batches: {data_s * batches:.1f} s, '
         f'{fwd_ms * batches / 1e3:.1f} s, {icp_ms * batches / 1e3:.1f} s')
 
 
-def eval_phase(torch, t0, smi: str) -> dict:
+def eval_phase(torch, t0, smi: str, phase: str, weights, reference: str,
+               max_outside: dict) -> dict:
     """The test split through `eval.runner.evaluate` on the card, held pair
-    for pair and layer for layer against the JAX package's CPU eval."""
+    for pair and layer for layer against the JAX package's CPU eval of the
+    same checkpoint (`reference`), with at most `max_outside` pairs per
+    layer outside the per-pair gate."""
     from pcd_reg_hregnet_torch.data import load_dataset
     from pcd_reg_hregnet_torch.eval.calib_eval import pose_deviation
     from pcd_reg_hregnet_torch.eval.runner import evaluate
     from pcd_reg_hregnet_torch.utils import checkpoint
 
-    with open(EVAL_REFERENCE) as f:
+    with open(reference) as f:
         ref = json.load(f)
     meta = ref['reference']
-    cfg = checkpoint.load_config(checkpoint.FLAGSHIP)
-    if meta['batch_size'] != cfg.data.batch_size or meta['split'] != 'test':
-        raise AssertionError(f'{EVAL_REFERENCE} was made at {meta}, the checkpoint '
-                             f'evaluates the test split at B={cfg.data.batch_size}')
+    cfg = checkpoint.load_config(weights)
+    if meta['batch_size'] != cfg.data.batch_size or meta['split'] != 'test' or \
+            ref['model'] != cfg.model.name:
+        raise AssertionError(f'{reference} was made at {meta} for {ref["model"]}, the '
+                             f'checkpoint evaluates {cfg.model.name} on the test split at '
+                             f'B={cfg.data.batch_size}')
     pairs = meta['pairs']
     ds = load_dataset(cfg.data, 'test', length=pairs)
     per_forward = per_forward_launches(cfg.model)
@@ -870,19 +919,19 @@ def eval_phase(torch, t0, smi: str) -> dict:
     for w in wrappers.values():
         w.launches = 0
     t_main = time.perf_counter()
-    out = evaluate(cfg, checkpoint.FLAGSHIP, split='test', icp=meta['icp'],
+    out = evaluate(cfg, weights, split='test', icp=meta['icp'],
                    icp_threshold=meta['icp_threshold'], icp_iters=meta['icp_iters'],
                    dataset=ds, device='cuda')
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t_main
     launches = {k: w.launches for k, w in wrappers.items()}
     forwards = -(-pairs // cfg.data.batch_size)
-    log('eval', t0, f'evaluate(test, B={cfg.data.batch_size}, icp={meta["icp"]}, '
+    log(phase, t0, f'evaluate(test, B={cfg.data.batch_size}, icp={meta["icp"]}, '
         f'{meta["icp_iters"]} iterations): {pairs} pairs in {eval_s:.2f} s '
         f'({pairs / eval_s:.1f} pairs/s, host clock, data generation included; '
         f'indicative only) on {smi}; launches {launches}')
     check_launches(launches, per_forward, forwards)
-    eval_breakdown(torch, t0, cfg, meta, forwards)
+    eval_breakdown(torch, t0, phase, cfg, weights, meta, forwards)
 
     deviation = pose_deviation(out, ref)
     layers = sorted(k for k in ref if k.startswith('layer_'))
@@ -903,25 +952,25 @@ def eval_phase(torch, t0, smi: str) -> dict:
         rre = (np.mean(got['rre']), np.mean(want['rre']))
         rte = (np.mean(got['rte']), np.mean(want['rte']))
         rec = (got['recall'], want['recall'])
-        log('eval', t0, f'{name}: card rre_deg {rre[0]:.5f} rte_m {rte[0]:.5f} recall '
+        log(phase, t0, f'{name}: card rre_deg {rre[0]:.5f} rte_m {rte[0]:.5f} recall '
             f'{rec[0]:.4f}; JAX CPU {rre[1]:.5f} {rte[1]:.5f} {rec[1]:.4f}; '
             f'{int(bad.sum())} pairs outside the per-pair gate (at most '
-            f'{EVAL_MAX_OUTSIDE[name]}) {np.flatnonzero(bad).tolist()}; max |dR| {dR.max():.2e}, '
+            f'{max_outside[name]}) {np.flatnonzero(bad).tolist()}; max |dR| {dR.max():.2e}, '
             f'max |dt| {dt.max():.2e} m, median |dR| {np.median(dR):.2e}')
-        if bad.sum() > EVAL_MAX_OUTSIDE[name]:
+        if bad.sum() > max_outside[name]:
             failed.append(f'{name}: {int(bad.sum())} pairs outside the per-pair gate, at most '
-                          f'{EVAL_MAX_OUTSIDE[name]}: {np.flatnonzero(bad).tolist()}')
+                          f'{max_outside[name]}: {np.flatnonzero(bad).tolist()}')
         if not (abs(rre[0] - rre[1]) <= EVAL_RRE_TOL and abs(rte[0] - rte[1]) <= EVAL_RTE_TOL
                 and abs(rec[0] - rec[1]) <= EVAL_RECALL_TOL):
             failed.append(f'{name} summary: card rre {rre[0]}, rte {rte[0]}, recall {rec[0]}; '
                           f'JAX CPU {rre[1]}, {rte[1]}, {rec[1]}')
-    log('eval', t0, f'{int(outside.sum())} of {pairs} pairs outside the per-pair gate '
+    log(phase, t0, f'{int(outside.sum())} of {pairs} pairs outside the per-pair gate '
         f'(R {POSE_TOL_R}, t {POSE_TOL_T} m) at some layer; worst: pair {worst[1]} '
         f'{worst[2]} {worst[3]}')
     if failed:
         raise AssertionError('; '.join(failed))
     for key in ('summary', 'summary_network'):
-        log('eval', t0, f'{key}: card ' + ', '.join(
+        log(phase, t0, f'{key}: card ' + ', '.join(
             f'{k} {out[key][k]:.5f}' for k in ('rre_deg', 'rte_m', 'rre_p95', 'rte_p95'))
             + '; JAX CPU ' + ', '.join(
             f'{k} {ref[key][k]:.5f}' for k in ('rre_deg', 'rte_m', 'rre_p95', 'rte_p95')))
@@ -1011,12 +1060,19 @@ def profile_window(torch, fn, reps: int):
     return host_ms, busy_ms, len(dev) / reps, top
 
 
-def train_phase(torch, t0, smi: str) -> dict:
-    """The reg_v11 train step at full width on the synthetic train split,
-    from the trained flagship: `train.loop.fit` for `TRAIN_STEPS` steps
+def loss_terms(cfg) -> tuple:
+    """The JAX metric names of the loss terms an objective reports."""
+    return ('tf_loss',) + tuple(f'{t}_loss' for t in ('chamfer', 'mi', 'circle')
+                                if getattr(cfg.loss, t))
+
+
+def train_phase(torch, t0, smi: str, phase: str, experiment: str, weights) -> dict:
+    """A trained checkpoint's own experiment (its recorded config) at full
+    width on the synthetic train split, from the checkpoint (the MI
+    discriminators included): `train.loop.fit` for `TRAIN_STEPS` steps
     (counted), then per-step launches, the TF32 flags during backward, step
     time, peak memory and device ops, one step against the plain versions
-    of all four kernels, and a checkpoint round trip."""
+    of the kernels, and a checkpoint round trip."""
     import tempfile
     from pathlib import Path
 
@@ -1024,9 +1080,9 @@ def train_phase(torch, t0, smi: str) -> dict:
     from pcd_reg_hregnet_torch.train import loop
     from pcd_reg_hregnet_torch.utils import checkpoint
 
-    cfg = checkpoint.load_config(checkpoint.FLAGSHIP)   # reg_v11 as the flagship was trained
+    cfg = checkpoint.load_config(weights)   # the experiment as the checkpoint was trained
     bs = cfg.data.batch_size
-    per_step = per_step_launches(cfg.model)
+    per_step = per_step_launches(cfg)
     per_forward = per_forward_launches(cfg.model)
     wrappers = kernel_wrappers()
     train_ds = load_dataset(cfg.data, 'train')
@@ -1039,7 +1095,7 @@ def train_phase(torch, t0, smi: str) -> dict:
     with tempfile.TemporaryDirectory() as log_dir:
         t = time.perf_counter()
         state, val = loop.fit(cfg, log_dir=log_dir, max_steps=TRAIN_STEPS,
-                              datasets=(train_ds, val_ds), init=str(checkpoint.FLAGSHIP),
+                              datasets=(train_ds, val_ds), init=str(weights),
                               device='cuda')
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t
@@ -1048,8 +1104,8 @@ def train_phase(torch, t0, smi: str) -> dict:
             records = [json.loads(line) for line in f]
         saved = sorted(p.name for p in (Path(log_dir) / cfg.train.ckpt_dir).iterdir())
     val_forwards = -(-TRAIN_VAL_PAIRS // bs)
-    log('train', t0, f'fit(reg_v11, B={bs} x {cfg.data.pcd_min_samples} points, from '
-        f'{checkpoint.FLAGSHIP.name}, {TRAIN_STEPS} steps of the {cfg.train.epochs}-epoch '
+    log(phase, t0, f'fit({experiment}, B={bs} x {cfg.data.pcd_min_samples} points, from '
+        f'{weights.name}, {TRAIN_STEPS} steps of the {cfg.train.epochs}-epoch '
         f'OneCycle schedule, val on {TRAIN_VAL_PAIRS} pairs) in {fit_s:.2f} s on {smi}; '
         f'launches {launches}; checkpoints {saved}')
     for k in per_step:
@@ -1060,12 +1116,16 @@ def train_phase(torch, t0, smi: str) -> dict:
     steps = [r for r in records if r['split'] == 'train']
     if [r['step'] for r in steps] != list(range(1, TRAIN_STEPS + 1)):
         raise AssertionError(f'logged train steps {[r["step"] for r in steps]}')
+    terms = loss_terms(cfg)
     for r in steps:
-        if not (np.isfinite(r['loss']) and np.isfinite(r['grad_norm'])):
-            raise AssertionError(f'step {r["step"]}: loss {r["loss"]}, grad norm {r["grad_norm"]}')
-    log('train', t0, 'loss per step: ' + ', '.join(f'{r["loss"]:.4f}' for r in steps))
-    log('train', t0, 'grad norm per step: ' + ', '.join(f'{r["grad_norm"]:.3f}' for r in steps))
-    log('train', t0, f'val after {TRAIN_STEPS} steps: loss {val["loss"]:.5f}, rre '
+        if not all(np.isfinite(r[k]) for k in ('loss', 'grad_norm') + terms):
+            raise AssertionError(f'step {r["step"]}: ' + ', '.join(
+                f'{k} {r.get(k)}' for k in ('loss', 'grad_norm') + terms))
+    log(phase, t0, 'loss per step: ' + ', '.join(f'{r["loss"]:.4f}' for r in steps))
+    for k in terms:
+        log(phase, t0, f'{k} per step: ' + ', '.join(f'{r[k]:.4f}' for r in steps))
+    log(phase, t0, 'grad norm per step: ' + ', '.join(f'{r["grad_norm"]:.3f}' for r in steps))
+    log(phase, t0, f'val after {TRAIN_STEPS} steps: loss {val["loss"]:.5f}, rre '
         f'{val["rre"]:.5f} deg, rte {val["rte"]:.5f} m; per step exactly {per_step}')
     if set(saved) != {'last', *(f'best_{m}' for m in loop.BEST_METRICS)}:
         raise AssertionError(f'checkpoints written: {saved}')
@@ -1073,10 +1133,12 @@ def train_phase(torch, t0, smi: str) -> dict:
     # --- per-step launches, TF32 off in the backward, time, memory -----------
     it = batch_iterator(train_ds, bs, shuffle=True, seed=cfg.train.seed, epoch=0)
     batches = [loop.to_device(next(it), torch.device('cuda')) for _ in range(TRAIN_TIMED + 4)]
-    state = loop.create_state(cfg, steps_per_epoch, device='cuda', init=checkpoint.FLAGSHIP)
+    state = loop.create_state(cfg, steps_per_epoch, device='cuda', init=weights)
     step = loop.make_train_step()
     flags = []
-    param = state.objective.model.feature_extraction.ptv3_1.PTv3Block_0.PatchAttention_0.Dense_0
+    fe = state.objective.model.feature_extraction
+    param = (fe.ptv3_1.PTv3Block_0.PatchAttention_0.Dense_0 if cfg.model.backbone == 'ptv3'
+             else fe.desc_extractor_1.ConvBNReLU_0.Dense_0)
     handle = param.weight.register_hook(lambda g: flags.append(
         (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)))
     prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -1094,7 +1156,7 @@ def train_phase(torch, t0, smi: str) -> dict:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
     if not flags or any(f != (False, False) for f in flags):
         raise AssertionError(f'TF32 flags (matmul, cudnn) during backward: {flags}')
-    log('train', t0, f'launches per step {per_step}; TF32 off in both backward passes '
+    log(phase, t0, f'launches per step {per_step}; TF32 off in both backward passes '
         f'(matmul, cudnn) = {flags} with the process default set to True')
     times = []
     for batch in batches[2:2 + TRAIN_TIMED]:
@@ -1108,7 +1170,7 @@ def train_phase(torch, t0, smi: str) -> dict:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     host_ms, busy_ms, ops, top = profile_window(torch, lambda: step(state, batches[-1]), 2)
-    log('train', t0, f'step B={bs}: median {np.median(times):.1f} ms (min {min(times):.1f}, max '
+    log(phase, t0, f'step B={bs}: median {np.median(times):.1f} ms (min {min(times):.1f}, max '
         f'{max(times):.1f}; {TRAIN_TIMED} synced steps, host clock) on {smi}; peak memory '
         f'{peak / 2**30:.2f} GiB (max_memory_allocated); profiler, 2 steps: host '
         f'{host_ms:.1f} ms/step, device busy {busy_ms:.1f} ms/step ({busy_ms / host_ms:.1%}, '
@@ -1121,7 +1183,7 @@ def train_phase(torch, t0, smi: str) -> dict:
     for i, batch in enumerate(batches[:4]):
         runs = []
         for plain in (False, True):
-            st = loop.create_state(cfg, steps_per_epoch, device='cuda', init=checkpoint.FLAGSHIP)
+            st = loop.create_state(cfg, steps_per_epoch, device='cuda', init=weights)
             kps = {}
             hook = _keypoint_hook(st.objective.model, kps)
             if plain:
@@ -1138,7 +1200,7 @@ def train_phase(torch, t0, smi: str) -> dict:
             pairs = {key: sorted(set(torch.nonzero((kk[key] != kp[key]).any(-1))[:, 0].tolist()))
                      for key, ok in same.items() if not ok}
             differing += 1
-            log('train', t0, f'batch {i}: K2 keypoints differ from the plain version\'s at '
+            log(phase, t0, f'batch {i}: K2 keypoints differ from the plain version\'s at '
                 f'(tower_level: pairs) {pairs}: a weighted-FPS near-tie; the next batch decides')
             if differing == 2:
                 raise AssertionError('two batches in a row with keypoints that differ between '
@@ -1147,7 +1209,7 @@ def train_phase(torch, t0, smi: str) -> dict:
         loss_k, loss_p = float(mk['loss']), float(mp['loss'])
         norm = float(mk['grad_norm'])
         worst = max((float((gk[n] - gp[n]).abs().max()), n) for n in gk)
-        log('train', t0, f'batch {i}: kernels vs plain versions, one step: keypoints identical '
+        log(phase, t0, f'batch {i}: kernels vs plain versions, one step: keypoints identical '
             f'at every level of both towers; loss {loss_k:.6f} vs {loss_p:.6f} (rel '
             f'{abs(loss_k - loss_p) / abs(loss_p):.2e}); max |dgrad| {worst[0]:.3e} '
             f'({worst[1]}) = {worst[0] / norm:.2e} of the global norm {norm:.3f}')
@@ -1162,15 +1224,80 @@ def train_phase(torch, t0, smi: str) -> dict:
         checkpoint.save_train(Path(d) / 'ck', sk, cfg)
         other = loop.create_state(cfg, steps_per_epoch, device='cuda')
         checkpoint.restore_train(Path(d) / 'ck', other)
+    extra = checkpoint.objective_state(sk.objective)
+    if any(not torch.equal(v, checkpoint.objective_state(other.objective)[k])
+           for k, v in extra.items()) or set(other.optimizer.state) != set(sk.optimizer.state):
+        raise AssertionError('the objective\'s own leaves or optimizer state differ after '
+                             'a checkpoint round trip')
     m1, m2 = step(sk, batches[5]), step(other, batches[5])
     if (other.step, float(m2['loss'])) != (sk.step, float(m1['loss'])) or \
             abs(float(m1['grad_norm']) - float(m2['grad_norm'])) > 1e-4 * float(m1['grad_norm']):
         raise AssertionError(f'after a checkpoint round trip: step {other.step} vs {sk.step}, '
                              f'loss {float(m2["loss"])} vs {float(m1["loss"])}, grad norm '
                              f'{float(m2["grad_norm"])} vs {float(m1["grad_norm"])}')
-    log('train', t0, f'checkpoint round trip: the next step equal (loss {float(m1["loss"]):.6f}, '
+    log(phase, t0, f'checkpoint round trip ({len(extra)} objective leaves beside the model\'s: '
+        f'{sorted(extra)[:2]}...): the next step equal (loss {float(m1["loss"]):.6f}, '
         f'step {sk.step})')
     return launches
+
+
+def presets_phase(torch, t0, smi: str) -> dict:
+    """Every other registration experiment at full width with seeded
+    weights: one B=8 forward through `serve.register` and one train step
+    each (counted), exact launches, finite poses, loss terms and gradient
+    norm."""
+    from pcd_reg_hregnet_torch import serve
+    from pcd_reg_hregnet_torch.data import batch_iterator, load_dataset
+    from pcd_reg_hregnet_torch.train import experiments, loop
+
+    wrappers = kernel_wrappers()
+    total = {k: 0 for k in wrappers}
+    batch = None
+    step = loop.make_train_step()
+    for name in PRESETS:
+        cfg = experiments.experiment(name)
+        if batch is None:
+            ds = load_dataset(cfg.data, 'train')
+            batch = loop.to_device(next(batch_iterator(ds, BATCH)), torch.device('cuda'))
+        state = loop.create_state(cfg, 256, device='cuda', seed=0)
+        model = state.objective.model.eval()
+        per_forward, per_step = per_forward_launches(cfg.model), per_step_launches(cfg)
+        # --- the main path, counted ---------------------------------------
+        for w in wrappers.values():
+            w.launches = 0
+        t = time.perf_counter()
+        out = serve.register(model, batch['uncalibed_pcd'], batch['pcd_left'], device='cuda')
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t) * 1e3
+        fwd = {k: w.launches for k, w in wrappers.items()}
+        t = time.perf_counter()
+        metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+        launches = {k: w.launches for k, w in wrappers.items()}
+        stepped = {k: launches[k] - fwd[k] for k in launches}
+        if fwd != per_forward or stepped != per_step:
+            raise AssertionError(f'{name}: launches per forward {fwd} (expected {per_forward}), '
+                                 f'per step {stepped} (expected {per_step})')
+        for k in total:
+            total[k] += launches[k]
+        terms = loss_terms(cfg)
+        values = {k: float(metrics[k]) for k in ('loss', 'grad_norm') + terms}
+        R, tr = out['rotation'], out['translation']
+        if not (torch.isfinite(R).all() and torch.isfinite(tr).all()) or \
+                tuple(R.shape) != (BATCH, 3, 3) or \
+                not all(np.isfinite(v) for v in values.values()) or values['grad_norm'] <= 0:
+            raise AssertionError(f'{name}: pose finite {bool(torch.isfinite(R).all())}, '
+                                 f'{values}')
+        log('presets', t0, f'{name} ({cfg.model.name}, {cfg.model.backbone}/{cfg.model.head}, '
+            f'{sum(p.numel() for p in state.objective.parameters())} parameters): B='
+            f'{BATCH} forward {fwd_ms:.0f} ms, step {step_ms:.0f} ms (first '
+            f'calls, host clock); launches per forward {fwd}, per step {stepped}; '
+            + ', '.join(f'{k} {v:.4f}' for k, v in values.items()))
+        del state, model, out, metrics
+        torch.cuda.empty_cache()
+    log('presets', t0, f'{len(PRESETS)} experiments on {smi}; launches {total}')
+    return total
 
 
 def main() -> int:
@@ -1203,7 +1330,15 @@ def main() -> int:
         entries.append(check_attention(torch, lib, kattn, gen, t0))
         entries.append(check_attention_backward(torch, lib, kattn, gen, t0))
 
-    counted = [serve_phase(torch, t0), eval_phase(torch, t0, smi), train_phase(torch, t0, smi)]
+    from pcd_reg_hregnet_torch.utils.checkpoint import A1, FLAGSHIP
+    counted = [serve_phase(torch, t0, 'serve', 'model_v6', FLAGSHIP),
+               eval_phase(torch, t0, smi, 'eval', FLAGSHIP, EVAL_REFERENCE, EVAL_MAX_OUTSIDE),
+               train_phase(torch, t0, smi, 'train', 'reg_v11', FLAGSHIP),
+               serve_phase(torch, t0, 'a1_serve', 'model_v2', A1),
+               eval_phase(torch, t0, smi, 'a1_eval', A1, A1_EVAL_REFERENCE,
+                          A1_EVAL_MAX_OUTSIDE),
+               train_phase(torch, t0, smi, 'a1_train', 'reg_v6', A1),
+               presets_phase(torch, t0, smi)]
     for e in entries:
         e['launches'] = sum(c[e['name']] for c in counted)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',

@@ -4,7 +4,9 @@ the JAX package's `eval` sub-command).
     python -m pcd_reg_hregnet_torch.evaluate --weights port_assets/r5_v11_knn_best_rre.npz \\
         --split test [--icp point_to_plane] [--results out.json] [--device cpu]
 
-The configuration is the checkpoint's own (`meta.json`); runs on the card
+`--weights` takes any exported checkpoint (default the flagship, reg_v11;
+`port_assets/r4_v6_50_best_rre.npz` is reg_v6, model_v2).  The
+configuration is the checkpoint's own (`meta.json`); runs on the card
 unless `--device cpu`.  Prints the summary of the last layer.
 """
 from __future__ import annotations

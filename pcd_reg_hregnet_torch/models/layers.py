@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..geometry import so3
 from ..ops.neighbors import knn, knn_gather, knn_group
 from ..ops.procrustes import weighted_kabsch
 from ..ops.sampling import fps, gather_points, weighted_fps
@@ -149,17 +150,46 @@ class KeypointDetector(nn.Module):
         return keypoints, sigmas, attentive_feature, grouped, attentive_map
 
 
+class DescExtractor(nn.Module):
+    """Descriptors from the detector's grouped neighbourhoods: a conv stack,
+    the concat [k-max tiled over k, per-neighbour, detector attention map],
+    two (Dense, BN, ReLU) and a k-max.
+
+    `in_channels` is the width of the grouped features (C + 4) and
+    `map_channels` that of the detector's attention map.  Takes grouped
+    [B, M, k, C + 4] and attentive_map [B, M, k, C_o]; returns [B, M,
+    desc_dim].
+    """
+
+    def __init__(self, in_channels: int, map_channels: int,
+                 out_channels: Sequence[int], desc_dim: int):
+        super().__init__()
+        c = out_channels[-1]
+        self.ConvBNReLU_0 = ConvBNReLU(in_channels, out_channels)
+        self.ConvBNReLU_1 = ConvBNReLU(2 * c + map_channels, (out_channels[-2],))
+        self.ConvBNReLU_2 = ConvBNReLU(out_channels[-2], (desc_dim,))
+
+    def forward(self, grouped, attentive_map):
+        x1 = self.ConvBNReLU_0(grouped)
+        x2 = torch.amax(x1, dim=2, keepdim=True).expand(x1.shape)
+        x = torch.cat([x2, x1, attentive_map], dim=-1)
+        return torch.amax(self.ConvBNReLU_2(self.ConvBNReLU_1(x)), dim=2)
+
+
 class CoarseReg(nn.Module):
     """Coarse correspondence via descriptor-space kNN + similarity features.
 
-    The model_v1 MI outputs (`mi_outputs`) are not ported yet.
+    `return_dists` adds the overlap-circle outputs (coord_dist, feats_dist);
+    `mi_outputs` (model_v1) adds the MI projection and batch-rolled
+    negatives, as FineReg's and in its place.
     """
 
     def __init__(self, k: int, in_channels: int, use_sim: bool = True,
-                 use_neighbor: bool = True, return_dists: bool = False):
+                 use_neighbor: bool = True, return_dists: bool = False,
+                 mi_outputs: bool = False):
         super().__init__()
         self.k, self.use_sim, self.use_neighbor = k, use_sim, use_neighbor
-        self.return_dists = return_dists
+        self.return_dists, self.mi_outputs = return_dists, mi_outputs
         C = in_channels
         n = 0
         if use_neighbor:
@@ -169,6 +199,9 @@ class CoarseReg(nn.Module):
         self.add_module(f'ConvBNReLU_{n}', ConvBNReLU(feat_in, (2 * C,) * 3))
         self._feat_convs = f'ConvBNReLU_{n}'
         self.MLPHead_0 = MLPHead(2 * C, (2 * C,) * 2, 1)
+        if mi_outputs:
+            self.add_module(f'ConvBNReLU_{n + 1}', ConvBNReLU(2 * C, (C,)))
+            self._mi_convs = f'ConvBNReLU_{n + 1}'
 
     def _nbr_desc(self, xyz, desc):
         _, nbr_idx = knn(xyz, xyz, self.k)
@@ -224,6 +257,10 @@ class CoarseReg(nn.Module):
         attentive_feats = torch.sum(attn[..., None] * feats, dim=2)
         weights = torch.sigmoid(self.MLPHead_0(attentive_feats)[..., 0])
 
+        if self.mi_outputs:
+            mi_feats = getattr(self, self._mi_convs)(attentive_feats)
+            return (corres_xyz, weights, torch.roll(weights, 1, dims=0),
+                    mi_feats, torch.roll(mi_feats, 1, dims=0))
         if self.return_dists:
             return corres_xyz, weights, src_rela_dist[..., 0], feats_dist
         return corres_xyz, weights
@@ -276,3 +313,51 @@ class SVDHead(nn.Module):
 
     def forward(self, src, src_corres, weights):
         return weighted_kabsch(src, src_corres, weights)
+
+
+def _weighted_centroids(src, src_corres, weights):
+    """[B, 6]: the weight-normalised centroids of src and its correspondences."""
+    w = weights / (torch.sum(weights, dim=1, keepdim=True) + 1e-4)
+    return torch.cat([torch.einsum('bn,bnc->bc', w, src),
+                      torch.einsum('bn,bnc->bc', w, src_corres)], dim=-1)
+
+
+class RegressionHead(nn.Module):
+    """MLP pose head (model_v3): the weighted centroids [B, 6] through two
+    MLPs to an axis-angle rotation (as a matrix by `so3.exp`) and a
+    translation."""
+
+    def __init__(self):
+        super().__init__()
+        for j, (i, o) in enumerate(((6, 128), (128, 64), (64, 3)) * 2):
+            self.add_module(f'Dense_{j}', nn.Linear(i, o))
+
+    def forward(self, src, src_corres, weights):
+        x = _weighted_centroids(src, src_corres, weights)
+        xr = F.relu(self.Dense_1(F.relu(self.Dense_0(x))))
+        xt = F.relu(self.Dense_4(F.relu(self.Dense_3(x))))
+        return so3.exp(self.Dense_2(xr)), self.Dense_5(xt)
+
+
+class Regression6DHead(nn.Module):
+    """6D-rotation pose head (model_v3's alternative): a Gram-Schmidt frame
+    from two regressed columns, and a translation.  Its flax auto-names
+    follow construction order, and `Dense(3)(relu(Dense(64)(relu(Dense(128)
+    (x)))))` constructs the outer Dense first: the translation MLP is
+    Dense_5 (6 -> 128), Dense_4 (128 -> 64), Dense_3 (64 -> 3)."""
+
+    def __init__(self):
+        super().__init__()
+        for j, (i, o) in enumerate(((6, 128), (128, 64), (64, 6),
+                                    (64, 3), (128, 64), (6, 128))):
+            self.add_module(f'Dense_{j}', nn.Linear(i, o))
+
+    def forward(self, src, src_corres, weights):
+        x = _weighted_centroids(src, src_corres, weights)
+        rot6d = self.Dense_2(F.relu(self.Dense_1(F.relu(self.Dense_0(x)))))
+        trans = self.Dense_3(F.relu(self.Dense_4(F.relu(self.Dense_5(x)))))
+        m = rot6d.reshape(-1, 3, 2)
+        b1 = m[:, :, 0] / (torch.linalg.norm(m[:, :, 0], dim=-1, keepdim=True) + 1e-6)
+        b2 = m[:, :, 1] - torch.sum(b1 * m[:, :, 1], dim=-1, keepdim=True) * b1
+        b2 = b2 / (torch.linalg.norm(b2, dim=-1, keepdim=True) + 1e-6)
+        return torch.stack([b1, b2, torch.cross(b1, b2, dim=-1)], dim=-1), trans

@@ -1,5 +1,6 @@
 """Hierarchical coarse-to-fine registration network (port of
-`pcd_reg_hregnet_tpu/models/registration.py`, PTv3 backbone and SVD head).
+`pcd_reg_hregnet_tpu/models/registration.py`): conv or PTv3 descriptors,
+SVD or regression pose head, MI outputs from the coarse or the second level.
 
 src/dst points [B, N, 3]; the forward returns a dict with `rotation` =
 [R3, R2, R1] and `translation` = [t3, t2, t1] (coarse -> fine, composed),
@@ -13,28 +14,35 @@ from torch import nn
 from ..core.config import ModelConfig
 from ..core.device import fp32_numerics
 from ..geometry import se3
-from .layers import CoarseReg, FineReg, KeypointDetector, SVDHead
+from .layers import (CoarseReg, DescExtractor, FineReg, KeypointDetector,
+                     Regression6DHead, RegressionHead, SVDHead)
 from .ptv3 import PointTransformerEncoder
+
+HEADS = {'svd': SVDHead, 'regression': RegressionHead, 'regression6d': Regression6DHead}
 
 
 class HierFeatureExtraction(nn.Module):
     """3-level keypoint + descriptor pyramid; level-(i+1) WFPS weights are
-    the mean-normalised inverse sigmas of level i."""
+    the mean-normalised inverse sigmas of level i.  Descriptors come from a
+    PTv3 encoder over the keypoints (`backbone='ptv3'`) or, for any other
+    backbone, as in the JAX module, from a `DescExtractor` over the
+    detector's grouped neighbourhoods."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.backbone != 'ptv3':
-            raise NotImplementedError(
-                f'backbone {cfg.backbone!r} is not ported yet (ptv3 only)')
         self.cfg = cfg
         in_ch = 0
         for i, lvl in enumerate(cfg.levels):
             self.add_module(f'detector_{i + 1}', KeypointDetector(
                 in_ch, lvl.nsample, lvl.k, lvl.conv_channels, cfg.use_fps))
-            self.add_module(f'ptv3_{i + 1}', PointTransformerEncoder(
-                lvl.conv_channels[-1], lvl.desc_dim, cfg.ptv3_depths,
-                cfg.ptv3_num_heads, cfg.ptv3_patch_sizes[i],
-                cfg.ptv3_mlp_ratio, cfg.ptv3_grid_size, cfg.ptv3_cpe))
+            if cfg.backbone == 'ptv3':
+                self.add_module(f'ptv3_{i + 1}', PointTransformerEncoder(
+                    lvl.conv_channels[-1], lvl.desc_dim, cfg.ptv3_depths,
+                    cfg.ptv3_num_heads, cfg.ptv3_patch_sizes[i],
+                    cfg.ptv3_mlp_ratio, cfg.ptv3_grid_size, cfg.ptv3_cpe))
+            else:
+                self.add_module(f'desc_extractor_{i + 1}', DescExtractor(
+                    in_ch + 4, lvl.conv_channels[-1], lvl.conv_channels, lvl.desc_dim))
             in_ch = lvl.conv_channels[-1]
 
     def forward(self, points: torch.Tensor) -> dict:
@@ -42,8 +50,11 @@ class HierFeatureExtraction(nn.Module):
         xyz, feat, weights = points, None, None
         for i in range(len(self.cfg.levels)):
             det = getattr(self, f'detector_{i + 1}')
-            xyz, sigmas, att_feat, _, _ = det(xyz, feat, weights)
-            desc = getattr(self, f'ptv3_{i + 1}')(xyz, att_feat)
+            xyz, sigmas, att_feat, grouped, att_map = det(xyz, feat, weights)
+            if self.cfg.backbone == 'ptv3':
+                desc = getattr(self, f'ptv3_{i + 1}')(xyz, att_feat)
+            else:
+                desc = getattr(self, f'desc_extractor_{i + 1}')(grouped, att_map)
             ret[f'xyz_{i + 1}'] = xyz
             ret[f'sigmas_{i + 1}'] = sigmas
             ret[f'desc_{i + 1}'] = desc
@@ -69,10 +80,6 @@ class RegistrationModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.head != 'svd':
-            raise NotImplementedError(f'head {cfg.head!r} is not ported yet (svd only)')
-        if cfg.mi_from_coarse:
-            raise NotImplementedError('mi_from_coarse is not ported yet')
         if cfg.compute_dtype != 'float32':
             raise NotImplementedError(
                 f'compute_dtype {cfg.compute_dtype!r} is not ported yet (float32 only)')
@@ -82,11 +89,11 @@ class RegistrationModel(nn.Module):
         self.cfg = cfg
         self.feature_extraction = HierFeatureExtraction(cfg)
         c1, c2, c3 = (lvl.desc_dim for lvl in cfg.levels)
-        self.coarse_corres = CoarseReg(cfg.coarse_k, c3, cfg.use_sim,
-                                       cfg.use_neighbor, cfg.circle_dists)
+        self.coarse_corres = CoarseReg(cfg.coarse_k, c3, cfg.use_sim, cfg.use_neighbor,
+                                       cfg.circle_dists, cfg.mi_from_coarse)
         self.fine_corres_2 = FineReg(cfg.fine_k, c2, cfg.mi_from_fine2)
         self.fine_corres_1 = FineReg(cfg.fine_k, c1)
-        self.pose_head = SVDHead()
+        self.pose_head = HEADS[cfg.head]()
 
     @fp32_numerics()
     def forward(self, src_points: torch.Tensor, dst_points: torch.Tensor) -> dict:
@@ -104,7 +111,12 @@ class RegistrationModel(nn.Module):
         ret = {}
         out3 = self.coarse_corres(src['xyz_3'], src['desc_3'], dst['xyz_3'],
                                   dst['desc_3'], src['sigmas_3'], dst['sigmas_3'])
-        if cfg.circle_dists:
+        if cfg.mi_from_coarse:
+            corres3, w3, w3_prime, mi_feats3, mi_feats3_prime = out3
+            ret.update(mi_weights=w3, mi_weights_prime=w3_prime,
+                       mi_feats=mi_feats3, mi_feats_prime=mi_feats3_prime,
+                       mi_c_local=src['desc_3'], mi_c_global=src['sigmas_3'])
+        elif cfg.circle_dists:
             corres3, w3, coord_dist, feats_dist = out3
             ret.update(coord_dist=coord_dist, feats_dist=feats_dist)
         else:

@@ -1,9 +1,16 @@
 """Named model presets (port of `pcd_reg_hregnet_tpu/models/zoo.py`).
 
-Every preset's configuration is listed (the experiment table names them);
-the port builds `model_v6` (PTv3 descriptor backbone, SVD head) for now,
-and `RegistrationModel` raises `NotImplementedError` for the others (conv
-and attention backbones, MI from the coarse level, the regression head).
+* hregnet  - conv descriptors, SVD head (the reference's HRegNet)
+* model_v1 - + MI outputs from CoarseReg
+* model_v2 - + MI outputs from FineReg2 after the coarse pose (A1)
+* model_v3 - model_v2 with the MLP regression head
+* model_v4 - model_v2 + overlap-circle distances from CoarseReg
+* model_v5 - self-attention detectors, cross-attention correspondences
+             (`models/attention.py`)
+* model_v6 - PTv3 descriptor backbone (A2, the flagship)
+
+Not ported yet, so refused with `NotImplementedError`: `compute_dtype`
+other than float32 (every model) and `seq_axis` (`RegistrationModel`).
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ from torch import nn
 
 from ..core.config import ModelConfig
 from ..core.device import resolve_device
+from .attention import AttentionRegistrationModel
 from .registration import RegistrationModel
 
 _PRESETS = {
@@ -70,26 +78,36 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             p.fill_(1.0)
 
 
+def model_for(cfg: ModelConfig) -> nn.Module:
+    """The model of a configuration: model_v5's attention pipeline for
+    `backbone='attention'`, `RegistrationModel` for the rest."""
+    if cfg.backbone == 'attention':
+        return AttentionRegistrationModel(cfg)
+    return RegistrationModel(cfg)
+
+
 def build(name: str, *, device: str | torch.device = 'cuda', seed: int = 0,
-          weights: str | Path | None = None, **overrides) -> RegistrationModel:
+          weights: str | Path | None = None, **overrides) -> nn.Module:
     """Build a model in eval mode on `device`.
 
     Without `weights`: the preset with seeded random weights.  With
     `weights` (an exported checkpoint, `utils/checkpoint.py`): the model
-    configuration recorded in the checkpoint, `overrides` on top, loaded
-    with ``strict=True``; the checkpoint's `DataConfig` is kept as
-    `model.data_cfg`.  Raises without a card unless ``device='cpu'``.
+    configuration recorded in the checkpoint, `overrides` on top, its
+    model leaves loaded with ``strict=True`` (the objective's, such as the
+    MI discriminators, are not the model's); the checkpoint's `DataConfig`
+    is kept as `model.data_cfg`.  Raises without a card unless
+    ``device='cpu'``.
     """
     dev = resolve_device(device)
     if weights is None:
-        model = RegistrationModel(model_config(name, **overrides))
+        model = model_for(model_config(name, **overrides))
         init_weights(model, torch.Generator().manual_seed(seed))
     else:
         from ..utils import checkpoint
         cfg, state = checkpoint.load(weights)
         if cfg.model.name != name:
             raise ValueError(f'{weights} holds {cfg.model.name!r}, not {name!r}')
-        model = RegistrationModel(dataclasses.replace(cfg.model, **overrides))
+        model = model_for(dataclasses.replace(cfg.model, **overrides))
         model.load_state_dict(state, strict=True)
         model.data_cfg = cfg.data
     return model.to(dev).eval()

@@ -5,10 +5,15 @@
         [--batch-size 8 --epochs N --max-steps N --init PATH --resume PATH|auto \\
          --log-dir DIR --device cuda|cpu --npoints N --debug-scale --watch]
 
-Runs on the card unless `--device cpu`.  `--init` starts from an exported
-checkpoint (`port_assets/r5_v11_knn_best_rre.npz` is the flagship);
-`--npoints` and `--debug-scale` (64/32/16 keypoints, one PTv3 block, patches
-of 16) make a run small enough for the CPU.  Writes one JSON line per step
+Every experiment of the table runs (`reg_v0`-`reg_v13`, `baseline`,
+`man_registration`; `feats`/`feats_desc` train the registration objective
+of their table entry, as the JAX package's `train` does: their own
+pretrain, `pretrain-feats`, is not ported yet).  Runs on the card
+unless `--device cpu`.  `--init` starts from an exported checkpoint that
+records the experiment's model (`port_assets/r5_v11_knn_best_rre.npz`:
+reg_v11; `port_assets/r4_v6_50_best_rre.npz`: reg_v6, MI discriminators
+included); `--npoints` and `--debug-scale` (64/32/16 keypoints, one PTv3
+block, patches of 16) make a run small enough for the CPU.  Writes one JSON line per step
 and per validation to `<log-dir>/metrics.jsonl`, checkpoints under
 `<log-dir>/ckpt/`, and prints a JSON summary.
 """

@@ -2,12 +2,12 @@
 the reference's train-script matrix as `Config` data, copied entry for
 entry.
 
-`experiment(name)` returns the full `Config`; the table lists every
-experiment, and training refuses (`NotImplementedError`, raised where the
-objective or the model is built) whatever is not ported yet: every model
-preset but `model_v6`, and the chamfer, MI and circle losses.  So
-`reg_v11`, `man_registration` and variants of them with the transformation
-loss detached run; `reg_v12`, `reg_v13`, `baseline` and the rest refuse.
+`experiment(name)` returns the full `Config`.  Every entry trains on the
+port: every model preset (conv, PTv3 and attention backbones, SVD and
+regression heads, MI from the coarse or the second level) and the
+transformation, chamfer, MI and circle losses.  Still refused
+(`NotImplementedError`, where the model is built): `compute_dtype` other
+than float32 and `seq_axis`, which no entry sets.
 """
 from __future__ import annotations
 

@@ -45,14 +45,16 @@ class TrainState:
 
 def create_state(cfg: Config, steps_per_epoch: int, *, device: str | torch.device = 'cuda',
                  init: Optional[str] = None, seed: Optional[int] = None) -> TrainState:
-    """A fresh state on `device`: the model's weights seeded from
-    `cfg.train.seed` (or `seed`; `models.zoo.init_weights`), or read from
-    the exported checkpoint `init` (`utils/checkpoint.py`; it must record
-    `cfg.model`).  Raises `NotImplementedError` for what is not ported."""
+    """A fresh state on `device`: the objective's weights (the model's,
+    then the MI discriminators') seeded from `cfg.train.seed` (or `seed`;
+    `models.zoo.init_weights`), or read from the exported checkpoint `init`
+    (`utils/checkpoint.py`; it must record `cfg.model`), the model and the
+    objective's other leaves each strictly.  Raises `NotImplementedError`
+    for what is not ported."""
     dev = resolve_device(device)
     objective = RegistrationObjective(cfg)
     if init is None:
-        zoo.init_weights(objective.model, torch.Generator().manual_seed(
+        zoo.init_weights(objective, torch.Generator().manual_seed(
             cfg.train.seed if seed is None else seed))
     else:
         saved, state_dict = checkpoint.load(init)
@@ -60,6 +62,7 @@ def create_state(cfg: Config, steps_per_epoch: int, *, device: str | torch.devic
             raise ValueError(f'{init} records another model configuration than '
                              f'cfg.model:\n{saved.model}\n{cfg.model}')
         objective.model.load_state_dict(state_dict, strict=True)
+        checkpoint.load_objective_state(objective, checkpoint.load_objective(init), init)
     objective.to(dev)
     return TrainState(objective, Optimizer(cfg.train, objective.named_parameters(),
                                            steps_per_epoch))

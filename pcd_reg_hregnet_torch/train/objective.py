@@ -6,9 +6,13 @@ Semantics, as in the JAX package:
   * the transformation loss of each pyramid layer, weighted by
     `loss.layer_weights` and averaged (sum / sum of weights);
   * the finest layer's errors are the metrics, under the JAX names;
+  * chamfer on (src_xyz_2_trans, dst_xyz_2) at `loss.chamfer_scale`;
+  * the deep-MI loss on the model's MI outputs, through the `mi_loss`
+    discriminators (a submodule, so their parameters join the optimizer);
+  * overlap-circle on (coord_dist, feats_dist);
   * `detach_transformation`: the pose loss is reported but not optimised.
-The chamfer, MI and overlap-circle losses are not ported yet (ROADMAP queue
-1 item 8): the objective refuses them.
+The whole forward, losses included, runs without TF32
+(`core.device.fp32_numerics`).
 """
 from __future__ import annotations
 
@@ -16,9 +20,10 @@ import torch
 from torch import nn
 
 from ..core.config import Config
+from ..core.device import fp32_numerics
 from ..geometry import se3
-from ..losses import transformation_loss
-from ..models.registration import RegistrationModel
+from ..losses import DeepMILoss, chamfer_loss, overlap_circle_loss, transformation_loss
+from ..models.zoo import model_for
 
 
 class RegistrationObjective(nn.Module):
@@ -28,18 +33,21 @@ class RegistrationObjective(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
-        for name in ('chamfer', 'mi', 'circle'):
-            if getattr(cfg.loss, name):
-                raise NotImplementedError(
-                    f'the {name} loss is not ported yet (ROADMAP queue 1 item 8); '
-                    f'the port trains the transformation loss only')
         self.cfg = cfg
-        self.model = RegistrationModel(cfg.model)
+        self.model = model_for(cfg.model)
+        lc = cfg.loss
+        if lc.mi:
+            lvl = cfg.model.levels[2 if cfg.model.mi_from_coarse else 1]
+            self.mi_loss = DeepMILoss(
+                global_in_channels=lc.mi_global_channels or lvl.nsample,
+                local_in_channels=lc.mi_local_channels or lvl.desc_dim)
 
+    @fp32_numerics()
     def forward(self, batch: dict):
         lc = self.cfg.loss
+        src = batch['uncalibed_pcd']
         gt_R, gt_t = se3.unpack(se3.inverse(batch['igt']))
-        ret = self.model(batch['uncalibed_pcd'], batch['pcd_left'])
+        ret = self.model(src, batch['pcd_left'])
         lw = torch.tensor(lc.layer_weights, dtype=torch.float32)
         tf_losses = []
         for i, (R, t) in enumerate(zip(ret['rotation'], ret['translation'])):
@@ -57,5 +65,30 @@ class RegistrationObjective(nn.Module):
         total = torch.zeros((), dtype=torch.float32, device=tf_total.device)
         if lc.transformation and not lc.detach_transformation:
             total = total + tf_total
+
+        if lc.chamfer:
+            ch = chamfer_loss(ret['src_xyz_2_trans'], ret['dst_xyz_2'], scale=lc.chamfer_scale)
+            metrics['chamfer_loss'] = ch
+            total = total + ch
+
+        if lc.mi:
+            if self.training and src.shape[0] < 2:
+                # the negatives are the batch rolled by one: at B=1 they are
+                # the positives and the bound carries no information.  Eval
+                # and serving still run it (the pose metrics ignore it).
+                raise ValueError('MI loss needs batch_size >= 2: its negatives are a '
+                                 'batch permutation, degenerate at B=1')
+            mi = self.mi_loss(
+                x_global=ret['mi_weights'], x_global_prime=ret['mi_weights_prime'],
+                x_local=ret['mi_feats'], x_local_prime=ret['mi_feats_prime'],
+                c_local=ret['mi_c_local'], c_global=ret['mi_c_global'])
+            metrics['mi_loss'] = mi
+            total = total + mi
+
+        if lc.circle:
+            circ = overlap_circle_loss(ret['coord_dist'], ret['feats_dist'])
+            metrics['circle_loss'] = circ
+            total = total + circ
+
         metrics['loss'] = total
         return total, metrics, ret

@@ -6,10 +6,13 @@ The JAX package saves orbax checkpoints, which need orbax and tensorstore
 to read.  `tools/export_torch_weights.py` turns one into an uncompressed
 `.npz` of flax leaves (`params/...`, `batch_stats/...`, `/`-joined paths)
 beside its `meta.json` (`<stem>.meta.json`); this module reads them with
-numpy alone.  A train checkpoint is a directory holding `state.pt` (the
-model's `state_dict`, the optimizer's state, step, epoch, best metrics and
-the config JSON, by `torch.save`) and `meta.json` (the same but the
-tensors).
+numpy alone.  The model's leaves are those two collections; the training
+objective's own submodules, the MI discriminators, are under
+`objective/params/mi_loss/...` and load apart (`load_objective`), so a
+model loads strictly without them.  A train checkpoint is a directory
+holding `state.pt` (the model's `state_dict`, the objective's other
+leaves, the optimizer's state, step, epoch, best metrics and the config
+JSON, by `torch.save`) and `meta.json` (the same but the tensors).
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from ..core.config import ASSETS_DIR, Config
 from .convert import from_flax
 
 FLAGSHIP = ASSETS_DIR / 'r5_v11_knn_best_rre.npz'   # reg_v11, model_v6
+A1 = ASSETS_DIR / 'r4_v6_50_best_rre.npz'           # reg_v6, model_v2
+OBJECTIVE = 'objective'
 TRAIN_STATE = 'state.pt'
 
 
@@ -52,8 +57,30 @@ def load_variables(path: str | Path) -> dict:
 
 
 def load(path: str | Path = FLAGSHIP) -> tuple[Config, dict[str, torch.Tensor]]:
-    """(Config, state_dict) of an exported checkpoint."""
+    """(Config, state_dict) of an exported checkpoint's model."""
     return load_config(path), from_flax(load_variables(path))
+
+
+def load_objective(path: str | Path) -> dict[str, torch.Tensor]:
+    """The `state_dict` of the objective's submodules other than the model
+    (`mi_loss.global_d.Dense_0.weight`, ...); empty when the checkpoint
+    holds none."""
+    return from_flax(load_variables(path).get(OBJECTIVE, {}))
+
+
+def objective_state(objective: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """The objective's `state_dict` without the model's entries."""
+    return {k: v for k, v in objective.state_dict().items() if not k.startswith('model.')}
+
+
+def load_objective_state(objective: torch.nn.Module, state: dict, source) -> None:
+    """Load `state` into the objective's submodules other than the model,
+    strictly: the same names, none missing, none left over."""
+    want = set(objective_state(objective))
+    if set(state) != want:
+        raise ValueError(f'{source}: the objective holds {sorted(want)[:4]}..., the checkpoint '
+                         f'{sorted(state)[:4]}... ({len(want)} against {len(state)} leaves)')
+    objective.load_state_dict(state, strict=False)   # strict but for the model's own keys
 
 
 def save_train(path: str | Path, state, cfg: Config) -> Path:
@@ -65,6 +92,7 @@ def save_train(path: str | Path, state, cfg: Config) -> Path:
     meta = {'step': state.step, 'epoch': state.epoch, 'best': dict(state.best),
             'config': cfg.to_json()}
     payload = dict(meta, model=state.objective.model.state_dict(),
+                   objective=objective_state(state.objective),
                    optimizer=state.optimizer.state_dict())
     torch.save(payload, path / (TRAIN_STATE + '.tmp'))
     os.replace(path / (TRAIN_STATE + '.tmp'), path / TRAIN_STATE)
@@ -76,10 +104,12 @@ def save_train(path: str | Path, state, cfg: Config) -> Path:
 
 def restore_train(path: str | Path, state) -> None:
     """Load a train checkpoint written by `save_train` into `state`: model
-    (strict), optimizer, step, epoch and best metrics."""
+    and the objective's other leaves (the MI discriminators; both strict),
+    optimizer, step, epoch and best metrics."""
     device = next(state.objective.parameters()).device
     saved = torch.load(Path(path) / TRAIN_STATE, map_location=device, weights_only=True)
     state.objective.model.load_state_dict(saved['model'], strict=True)
+    load_objective_state(state.objective, saved['objective'], path)
     state.optimizer.load_state_dict(saved['optimizer'])
     state.step, state.epoch = int(saved['step']), int(saved['epoch'])
     state.best.update({k: float(v) for k, v in saved['best'].items() if k in state.best})

@@ -5,6 +5,11 @@ against the JAX package (CPU).
   1e-6 (the same f32 formulas; full-f32 3x3 products in both); Euler and
   geodesic errors (degrees) within 2e-5 deg; near the identity the
   gradient also within 2e-3 relative (see the test).
+* `chamfer_loss` (every reduction), `DeepMILoss` (either head, and both)
+  and `overlap_circle_loss` (with and without weights): values within
+  1e-5 relative and gradients (of the inputs, and of the discriminators'
+  parameters) within 1e-5 relative / 1e-6 absolute; the same f32 formulas
+  in other summation orders.
 * `make_schedule` against the JAX `make_schedule` (optax's onecycle, cosine,
   staircase exponential and constant schedules) at every step of a 100-step
   run, rtol 1e-6: the port evaluates optax's formulas with its f32
@@ -30,15 +35,21 @@ import pytest
 import torch
 
 from pcd_reg_hregnet_tpu.core import config as jconfig
+from pcd_reg_hregnet_tpu.losses import chamfer as jchamfer
+from pcd_reg_hregnet_tpu.losses import circle as jcircle
 from pcd_reg_hregnet_tpu.losses import losses as jlosses
+from pcd_reg_hregnet_tpu.losses import mi as jmi
 from pcd_reg_hregnet_tpu.train import experiments as jexperiments
 from pcd_reg_hregnet_tpu.train import optimizer as joptimizer
 from pcd_reg_hregnet_torch.core.config import DataConfig, TrainConfig
 from pcd_reg_hregnet_torch.data import PairDataset, SyntheticPairSource
 from pcd_reg_hregnet_torch.geometry import perturbations, se3, so3
-from pcd_reg_hregnet_torch.losses import transformation_loss
+from pcd_reg_hregnet_torch.losses import (DeepMILoss, chamfer_loss, overlap_circle_loss,
+                                          transformation_loss)
 from pcd_reg_hregnet_torch.train import experiments, optimizer
 from pcd_reg_hregnet_torch.train.objective import RegistrationObjective
+from pcd_reg_hregnet_torch.utils.convert import from_flax
+from test_torch_model import _rand, _variables
 
 torch.set_num_threads(1)
 
@@ -77,6 +88,76 @@ class TestTransformationLoss:
         rtol = 2e-3 if scale < 0.01 else 0
         np.testing.assert_allclose(tR.grad.numpy(), np.asarray(jg[0]), atol=1e-6, rtol=rtol)
         np.testing.assert_allclose(tt.grad.numpy(), np.asarray(jg[1]), atol=1e-6, rtol=rtol)
+
+
+LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+class TestRegistrationLosses:
+    @pytest.mark.parametrize('reduction', ['mean', 'sum', 'none'])
+    def test_chamfer(self, reduction):
+        a, b = _rand(0, (2, 50, 3), -40, 40), _rand(1, (2, 40, 3), -40, 40)
+
+        def jfn(x, y):
+            return jnp.sum(jchamfer.chamfer_loss(x, y, scale=50.0, reduction=reduction))
+        want, jg = jax.value_and_grad(jfn, argnums=(0, 1))(a, b)
+        ta, tb = (torch.from_numpy(x).requires_grad_() for x in (a, b))
+        got = torch.sum(chamfer_loss(ta, tb, scale=50.0, reduction=reduction))
+        got.backward()
+        assert float(got.detach()) == pytest.approx(float(want), rel=1e-5)
+        for t, g in zip((ta, tb), jg):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), **LOSS_TOL)
+
+    @pytest.mark.parametrize('heads', [(512, 128), (None, 128), (512, None)])
+    def test_deep_mi(self, heads):
+        """Sized as the objective sizes it at L2 of the full pyramid: global
+        over 512 weights, local over 128 channels; inputs as the model makes
+        them (sigmoid weights, ReLU features, rolled primes)."""
+        g, c = heads
+        w = _rand(2, (3, 512), 0, 1)
+        cg = _rand(3, (3, 512), 0.001, 2)
+        f = _rand(4, (3, 20, 128), 0, 2)
+        cl = _rand(5, (3, 20, 128))
+        args = dict(x_global=w, x_global_prime=np.roll(w, 1, 0), x_local=f,
+                    x_local_prime=np.roll(f, 1, 0), c_local=cl, c_global=cg)
+        jm = jmi.DeepMILoss(global_in_channels=g, local_in_channels=c)
+        v = _variables(jm, **args)
+
+        def jfn(params, inputs):
+            return jm.apply({'params': params}, **inputs)
+        want, (jgp, jgi) = jax.value_and_grad(jfn, argnums=(0, 1))(v['params'], args)
+        tm = DeepMILoss(g, c)
+        tm.load_state_dict(from_flax(v), strict=True)
+        inputs = {k: torch.from_numpy(x).requires_grad_() for k, x in args.items()}
+        got = tm(**inputs)
+        got.backward()
+        assert float(got.detach()) == pytest.approx(float(want), rel=1e-5)
+        wantp = from_flax({'params': jgp})
+        assert set(wantp) == {n for n, _ in tm.named_parameters()}
+        for n, p in tm.named_parameters():
+            np.testing.assert_allclose(p.grad.numpy(), wantp[n].numpy(), err_msg=n, **LOSS_TOL)
+        for k, t in inputs.items():
+            want_g = np.asarray(jgi[k])
+            if t.grad is None:
+                assert not want_g.any(), k
+            else:
+                np.testing.assert_allclose(t.grad.numpy(), want_g, err_msg=k, **LOSS_TOL)
+
+    @pytest.mark.parametrize('weighted', [False, True])
+    def test_overlap_circle(self, weighted):
+        coords = _rand(6, (2, 40, 8), 0, 3)
+        feats = _rand(7, (2, 40, 8), 0, 2)
+        weights = _rand(8, (2, 40), 0, 1) if weighted else None
+
+        def jfn(f):
+            return jcircle.overlap_circle_loss(jnp.asarray(coords), f, weights)
+        want, jg = jax.value_and_grad(jfn)(feats)
+        tf = torch.from_numpy(feats).requires_grad_()
+        got = overlap_circle_loss(torch.from_numpy(coords), tf,
+                                  None if weights is None else torch.from_numpy(weights))
+        got.backward()
+        assert float(got.detach()) == pytest.approx(float(want), rel=1e-5)
+        np.testing.assert_allclose(tf.grad.numpy(), np.asarray(jg), **LOSS_TOL)
 
 
 def _train_configs(**over):
@@ -172,6 +253,17 @@ class TestOptimizer:
         frozen = dataclasses.replace(cfg.train, freeze_feats=True)
         assert {optimizer.group_label(n, frozen) for n in names
                 if '.feature_extraction.' in f'.{n}'} == {'frozen'}
+
+    def test_mi_discriminators_are_base(self):
+        """The JAX `group_label` reads `mi_loss/...` as neither frozen nor a
+        PTv3 block: the discriminators train at `lr` (reg_v12 has both)."""
+        cfg = experiments.experiment('reg_v12')
+        names = [n for n, _ in RegistrationObjective(cfg).named_parameters()]
+        mi = [n for n in names if n.startswith('mi_loss.')]
+        assert len(mi) == 8
+        frozen = dataclasses.replace(cfg.train, freeze_feats=True, freeze_detector=True)
+        for train in (cfg.train, frozen):
+            assert {optimizer.group_label(n, train) for n in mi} == {'base'}
 
     def test_state_dict_round_trip(self):
         cfg = TrainConfig(epochs=1)

@@ -1,22 +1,29 @@
-"""Export the flagship checkpoint and its eval yardstick for the PyTorch port.
+"""Export a trained checkpoint and its eval yardstick for the PyTorch port.
 
 The card's machine has no JAX, orbax or tensorstore, so the port never
-reads the orbax directory.  This tool (JAX and orbax required) writes, into
-`port_assets/`:
+reads the orbax directory.  This tool (JAX and orbax required) reads
+`ckpts/NAME.tar.gz` or its split parts `ckpts/NAME.tar.gz.part.*` and
+writes, into `port_assets/`:
 
-* `r5_v11_knn_best_rre.npz`: `params` and `batch_stats` of the checkpoint,
-  with the objective's `model/` prefix dropped, one uncompressed f32 array
-  per flax leaf under its `/`-joined path (`params/feature_extraction/...`);
-  `opt_state` is left out;
-* `r5_v11_knn_best_rre.meta.json`: the checkpoint's `meta.json` as it is;
+* `NAME.npz`: `params` and `batch_stats` of the checkpoint, one
+  uncompressed f32 array per flax leaf under its `/`-joined path.  The
+  model's leaves drop the objective's `model/` prefix
+  (`params/feature_extraction/...`); the objective's other submodules, the
+  MI discriminators, keep theirs under `objective/`
+  (`objective/params/mi_loss/global_d/Dense_0/kernel`), which no model leaf
+  can start with; `opt_state` is left out;
+* `NAME.meta.json`: the checkpoint's `meta.json` as it is;
 * `perturbations_synthetic_{val,test}.txt`: the JAX package's eval twist
   tables (`data/pipeline.py::perturbation_table`, seeds 1 and 2), which the
-  port cannot regenerate without JAX's PRNG;
-* with `--eval`: `v11_r5_eval_jax_cpu.json`, the JAX package's own
-  `eval.runner.evaluate(cfg, state, split='test', icp='point_to_plane')` of
-  the checkpoint on the CPU (exact kNN there), the port's yardstick.
+  port cannot regenerate without JAX's PRNG.  Every checkpoint here shares
+  one `DataConfig`, so the tables are shared: an existing table that the
+  checkpoint's config would make differently is an error, never replaced;
+* with `--eval`: `<vX>_<rY>_eval_jax_cpu.json` (for `rY_vX_...`), the JAX
+  package's own `eval.runner.evaluate(cfg, state, split='test',
+  icp='point_to_plane')` of the checkpoint on the CPU (exact kNN there),
+  the port's yardstick.
 
-    JAX_PLATFORMS=cpu python tools/export_torch_weights.py [--eval] [--pairs N]
+    JAX_PLATFORMS=cpu python tools/export_torch_weights.py [--ckpt NAME] [--eval] [--pairs N]
 """
 from __future__ import annotations
 
@@ -33,16 +40,23 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-CKPT = 'r5_v11_knn_best_rre'
+FLAGSHIP = 'r5_v11_knn_best_rre'
 SPLIT_SEEDS = {'val': 1, 'test': 2}
 SPLIT_LENGTHS = {'val': 256, 'test': 256}
 
 
-def extract(tmp: str) -> str:
-    """Unpack `ckpts/<CKPT>.tar.gz.part.*` into `tmp`; returns the orbax dir."""
-    parts = sorted(glob.glob(os.path.join(REPO, 'ckpts', f'{CKPT}.tar.gz.part.*')))
+def tarball(name: str) -> list:
+    """`ckpts/<name>.tar.gz`, or its split parts in order."""
+    whole = os.path.join(REPO, 'ckpts', f'{name}.tar.gz')
+    parts = [whole] if os.path.exists(whole) else sorted(glob.glob(whole + '.part.*'))
     if not parts:
-        raise FileNotFoundError(f'no ckpts/{CKPT}.tar.gz.part.*')
+        raise FileNotFoundError(f'no ckpts/{name}.tar.gz or ckpts/{name}.tar.gz.part.*')
+    return parts
+
+
+def extract(name: str, tmp: str) -> str:
+    """Unpack the checkpoint's tarball into `tmp`; returns the orbax dir."""
+    parts = tarball(name)
     cat = subprocess.Popen(['cat', *parts], stdout=subprocess.PIPE)
     subprocess.run(['tar', 'xz', '-C', tmp], stdin=cat.stdout, check=True)
     cat.wait()
@@ -58,8 +72,10 @@ def restore(path: str) -> dict:
 
 
 def flat_leaves(variables: dict) -> dict:
-    """{'params/feature_extraction/.../kernel': f32 array} without `model/`."""
+    """{'params/feature_extraction/.../kernel': f32 array} without `model/`;
+    the objective's other submodules under `objective/<coll>/<module>/...`."""
     import numpy as np
+    from pcd_reg_hregnet_torch.utils.checkpoint import OBJECTIVE
     out = {}
 
     def walk(tree, prefix):
@@ -71,22 +87,41 @@ def flat_leaves(variables: dict) -> dict:
 
     for coll in ('params', 'batch_stats'):
         tree = variables[coll]
-        if set(tree) != {'model'}:
-            raise KeyError(f'{coll}: expected the single top-level key model, got {sorted(tree)}')
-        walk(tree['model'], (coll,))
+        if tree and 'model' not in tree:
+            raise KeyError(f'{coll}: no top-level key model in {sorted(tree)}')
+        for top, sub in tree.items():
+            walk(sub, (coll,) if top == 'model' else (OBJECTIVE, coll, top))
     return out
 
 
 def write_tables(out_dir: str, data_cfg) -> None:
+    """Make each table from its seed; an existing table must come out the
+    same, byte for byte, since other checkpoints' exports share it."""
     from pcd_reg_hregnet_tpu.data.pipeline import perturbation_table
     for split, seed in SPLIT_SEEDS.items():
         path = os.path.join(out_dir, f'perturbations_synthetic_{split}.txt')
+        fresh = path + '.new'
+        if os.path.exists(fresh):
+            os.remove(fresh)
+        perturbation_table(fresh, SPLIT_LENGTHS[split], data_cfg, seed=seed)
         if os.path.exists(path):
-            os.remove(path)     # regenerate from the seed, never from a stale file
-        perturbation_table(path, SPLIT_LENGTHS[split], data_cfg, seed=seed)
+            with open(path, 'rb') as a, open(fresh, 'rb') as b:
+                same = a.read() == b.read()
+            os.remove(fresh)
+            if not same:
+                raise RuntimeError(f'{path} differs from the table this checkpoint\'s '
+                                   'DataConfig makes; it is left as it was')
+        else:
+            os.replace(fresh, path)
 
 
-def run_eval(ckpt_dir: str, out_dir: str, pairs: int) -> None:
+def eval_name(name: str) -> str:
+    """`r5_v11_knn_best_rre` -> `v11_r5_eval_jax_cpu.json`."""
+    run, model = name.split('_')[:2]
+    return f'{model}_{run}_eval_jax_cpu.json'
+
+
+def run_eval(name: str, ckpt_dir: str, out_dir: str, pairs: int) -> None:
     """The JAX package's own eval of the checkpoint, on the CPU."""
     import jax
     import numpy as np
@@ -114,19 +149,21 @@ def run_eval(ckpt_dir: str, out_dir: str, pairs: int) -> None:
     seconds = time.perf_counter() - t
     out['reference'] = {
         'made_by': 'tools/export_torch_weights.py --eval',
-        'checkpoint': f'ckpts/{CKPT}.tar.gz.part.*',
+        'checkpoint': f'ckpts/{name}.tar.gz' + ('.part.*' if '.part.' in tarball(name)[0] else ''),
         'platform': jax.devices()[0].platform, 'jax': jax.__version__,
         'split': 'test', 'pairs': len(ds), 'batch_size': cfg.data.batch_size,
         'icp': icp, 'icp_threshold': icp_threshold, 'icp_iters': icp_iters,
         'seconds': seconds, 'numpy': np.__version__,
     }
-    with open(os.path.join(out_dir, 'v11_r5_eval_jax_cpu.json'), 'w') as f:
+    with open(os.path.join(out_dir, eval_name(name)), 'w') as f:
         json.dump(out, f)
     print('eval', len(ds), 'pairs in', round(seconds, 1), 's;', out['summary'])
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--ckpt', default=FLAGSHIP,
+                    help='checkpoint name under ckpts/ (default: the flagship)')
     ap.add_argument('--out', default=os.path.join(REPO, 'port_assets'))
     ap.add_argument('--eval', action='store_true',
                     help='also write the JAX-CPU eval of the test split (long)')
@@ -140,18 +177,18 @@ def main() -> int:
     os.makedirs(args.out, exist_ok=True)
     tmp = tempfile.mkdtemp()
     try:
-        ckpt_dir = extract(tmp)
+        ckpt_dir = extract(args.ckpt, tmp)
         leaves = flat_leaves(restore(ckpt_dir))
-        np.savez(os.path.join(args.out, f'{CKPT}.npz'), **leaves)
+        np.savez(os.path.join(args.out, f'{args.ckpt}.npz'), **leaves)
         shutil.copyfile(os.path.join(ckpt_dir, 'meta.json'),
-                        os.path.join(args.out, f'{CKPT}.meta.json'))
+                        os.path.join(args.out, f'{args.ckpt}.meta.json'))
         with open(os.path.join(ckpt_dir, 'meta.json')) as f:
             cfg = Config.from_json(json.load(f)['config'])
         write_tables(args.out, cfg.data)
         print(f'{len(leaves)} leaves, '
               f'{sum(a.nbytes for a in leaves.values()) / 2**20:.1f} MiB -> {args.out}')
         if args.eval:
-            run_eval(ckpt_dir, args.out, args.pairs)
+            run_eval(args.ckpt, ckpt_dir, args.out, args.pairs)
     finally:
         shutil.rmtree(tmp)
     return 0
