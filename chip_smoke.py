@@ -92,14 +92,41 @@ Phases, each printing its own line with seconds:
    weights at full width: one B=8 forward through `serve.register` and one
    train step each, launches exactly as the preset implies (K3 and K3b
    only on `model_v6`, K3b only for the levels an optimised loss reaches),
-   poses, loss terms (under their JAX names) and gradient norm finite.
+   poses, loss terms (under their JAX names) and gradient norm finite;
+11. feats_detector, feats_descriptor: `train.feats_loop.fit_feats` at full
+   width on the synthetic train split, `FEATS_STEPS` steps per stage: the
+   detector stage at B=16 from the weights of
+   `port_assets/r5_feats_desc_feats_descriptor.npz` (the JAX package's
+   trained descriptor stage), then the descriptor stage at B=8 from the
+   detector stage's checkpoint; launches exactly K1 2, K2 4, K3 36 and K3b
+   0 (detector: no loss reads the descriptors) or 36 (descriptor) per
+   step, every loss term finite, every detector parameter bit-identical
+   through the descriptor stage; then each stage's single steps as in
+   phase 6 (launches, TF32, time, memory, device ops, kernels against plain
+   versions, checkpoint round trip), and the detector stage's unread PTv3
+   forward timed;
+12. feats_losses: the descriptor checkpoint's objective at eval on the 16
+   test pairs of `port_assets/feats_desc_r5_feats_jax_cpu.json` (the JAX
+   package's CPU values): each pair's per-level chamfer and matching losses
+   within `FEATS_ANY_RTOL` relative, and within `FEATS_PAIR_RTOL` but for
+   at most `FEATS_MAX_OUTSIDE` of the pairs that take JAX's level-3
+   keypoints; the plain versions on the card pick the same keypoints and
+   give every loss within `TRAIN_LOSS_TOL`;
+13. warm_eval: phase 5 for the warm-started `reg_v11` checkpoint
+   (`port_assets/r4_v11_warm_best_rre.npz`) against
+   `port_assets/v11_warm_r4_eval_jax_cpu.json`, limits
+   `WARM_EVAL_MAX_OUTSIDE` and `WARM_EVAL_SUMMARY_TOL`;
+14. warm_start: `train.loop.fit` of `reg_v11` with `pretrain_feats` = the
+   descriptor export: before step 1 every `feature_extraction` entry is the
+   checkpoint's and every other the seeded init; `WARM_STEPS` steps and a
+   short validation, launches exactly 2/4/36/36 per step, all finite.
 
 Ends with a JSON line of per-kernel numbers, the card's name and power
 limit, the total seconds, and the result line.  In the JSON line, `ms`,
 `plain_ms`, `bound_ms` and `library_ms` add up the kernel's calls in one
 B=8 pair-forward (both towers; for K3b, the backward of one B=8 train
 step); `launches` is the sum of the counts over the main paths of phases
-4-10, each counted from 0.  Exits non-zero, with no
+4-14, each counted from 0.  Exits non-zero, with no
 result line, when there is no CUDA device or any phase fails.
 """
 from __future__ import annotations
@@ -175,6 +202,48 @@ TRAIN_GRAD_TOL = 1e-3   # and each gradient, of the global gradient norm
 EVAL_RRE_TOL = 0.005            # deg, each layer's summary
 EVAL_RTE_TOL = 1e-3             # m
 EVAL_RECALL_TOL = 2 / 256
+FEATS_REFERENCE = 'port_assets/feats_desc_r5_feats_jax_cpu.json'
+# The descriptor checkpoint's per-pair feats losses against the JAX-CPU
+# ones, relative.  The port's CPU forward (tools/compare_feats.py) puts 5
+# of the 16 pairs outside 1e-3 and none outside 3.1e-3: its decalibrated
+# source differs from JAX's by f32 rounding (~1e-5 m), which moves a few
+# points across a 1 cm PTv3 serialisation cell and so changes their
+# descriptors, and 3 pairs (0, 5, 15) take other level-3 keypoints (a
+# weighted-FPS near-tie, decided by the last bits of sigma).  The gate: no
+# pair outside 1e-2; of the pairs that take JAX's level-3 keypoints, at
+# most the CPU's 3 (8, 9, 14) plus 2 outside 1e-3; the near-tie pairs are
+# allowed as a count, and the kernels must not be what decides them: on
+# the card, the plain versions of the kernels pick the same keypoints and
+# give each loss within `TRAIN_LOSS_TOL`.
+FEATS_PAIR_RTOL = 1e-3
+FEATS_MAX_OUTSIDE = 5
+FEATS_ANY_RTOL = 1e-2
+FEATS_STEPS = 4          # optimizer steps of each counted feats stage
+FEATS_DET_BATCH = 16     # the detector stage's batch (ckpts/r5_feats_det_*: B=16)
+# The warm-started reg_v11 checkpoint against the JAX package's CPU eval of
+# it.  The port's CPU eval (tools/compare_evals.py) puts 86 / 23 / 11 pairs
+# outside the per-pair gate at layers 0 / 1 / 2 (ICP keeps every network
+# pose in the JAX eval, so layer 3 takes layer 2's): this checkpoint, 5
+# epochs from the feats warm start, picks another L1-L3 keypoint than JAX
+# on 12 of its first 24 test pairs even from bit-identical inputs
+# (near-ties; tools/probe_near_ties.py), and its coarse Kabsch magnifies
+# f32 rounding to ~5e-4 in R where the keypoints agree.  At such counts the flagship's "CPU count plus 2" is below the
+# binomial spread of another device's count, so each limit is the CPU count
+# plus max(2, 3 binomial standard deviations).  Those flips move the
+# summary too: the per-pair differences put the standard deviation of the
+# mean difference at 0.00359 / 0.00183 / 0.00154 deg (rre), 0.00189 /
+# 0.00099 / 0.00082 m (rte) and 0.0055 / 0 / 0 (recall) at layers 0 / 1 /
+# 2 (tools/compare_evals.py), so the flagship's 1e-3 m holds another
+# correct implementation only about two times in three.  Each summary limit is the
+# flagship's gate or 3 of those standard deviations, the larger
+# (`WARM_EVAL_SUMMARY_TOL`; layer 3 takes layer 2's).
+WARM_EVAL_REFERENCE = 'port_assets/v11_warm_r4_eval_jax_cpu.json'
+WARM_EVAL_MAX_OUTSIDE = {'layer_0': 109, 'layer_1': 37, 'layer_2': 21, 'layer_3': 21}
+WARM_EVAL_SUMMARY_TOL = {'layer_0': (0.0108, 0.0057, 0.0166),
+                         'layer_1': (0.0055, 0.0030, EVAL_RECALL_TOL),
+                         'layer_2': (EVAL_RRE_TOL, 0.0025, EVAL_RECALL_TOL),
+                         'layer_3': (EVAL_RRE_TOL, 0.0025, EVAL_RECALL_TOL)}
+WARM_STEPS = 4           # optimizer steps of the counted warm start
 
 
 def log(phase: str, t0: float, msg: str) -> None:
@@ -891,11 +960,13 @@ def eval_breakdown(torch, t0, phase, cfg, weights, meta, batches: int) -> None:
 
 
 def eval_phase(torch, t0, smi: str, phase: str, weights, reference: str,
-               max_outside: dict) -> dict:
+               max_outside: dict, summary_tol: dict | None = None) -> dict:
     """The test split through `eval.runner.evaluate` on the card, held pair
     for pair and layer for layer against the JAX package's CPU eval of the
     same checkpoint (`reference`), with at most `max_outside` pairs per
-    layer outside the per-pair gate."""
+    layer outside the per-pair gate, and each layer's summary within
+    `summary_tol[layer]` (rre deg, rte m, recall), by default
+    `EVAL_RRE_TOL`, `EVAL_RTE_TOL`, `EVAL_RECALL_TOL`."""
     from pcd_reg_hregnet_torch.data import load_dataset
     from pcd_reg_hregnet_torch.eval.calib_eval import pose_deviation
     from pcd_reg_hregnet_torch.eval.runner import evaluate
@@ -960,8 +1031,10 @@ def eval_phase(torch, t0, smi: str, phase: str, weights, reference: str,
         if bad.sum() > max_outside[name]:
             failed.append(f'{name}: {int(bad.sum())} pairs outside the per-pair gate, at most '
                           f'{max_outside[name]}: {np.flatnonzero(bad).tolist()}')
-        if not (abs(rre[0] - rre[1]) <= EVAL_RRE_TOL and abs(rte[0] - rte[1]) <= EVAL_RTE_TOL
-                and abs(rec[0] - rec[1]) <= EVAL_RECALL_TOL):
+        tol_rre, tol_rte, tol_rec = (summary_tol or {}).get(
+            name, (EVAL_RRE_TOL, EVAL_RTE_TOL, EVAL_RECALL_TOL))
+        if not (abs(rre[0] - rre[1]) <= tol_rre and abs(rte[0] - rte[1]) <= tol_rte
+                and abs(rec[0] - rec[1]) <= tol_rec):
             failed.append(f'{name} summary: card rre {rre[0]}, rte {rte[0]}, recall {rec[0]}; '
                           f'JAX CPU {rre[1]}, {rte[1]}, {rec[1]}')
     log(phase, t0, f'{int(outside.sum())} of {pairs} pairs outside the per-pair gate '
@@ -975,6 +1048,72 @@ def eval_phase(torch, t0, smi: str, phase: str, weights, reference: str,
             + '; JAX CPU ' + ', '.join(
             f'{k} {ref[key][k]:.5f}' for k in ('rre_deg', 'rte_m', 'rre_p95', 'rte_p95')))
     return launches
+
+
+FEATS_TERMS = tuple(f'{k}_l{lvl}' for k in ('chamfer', 'matching') for lvl in (1, 2, 3))
+
+
+def feats_pair_losses(torch, objective, batch: dict) -> dict:
+    """The feats objective at eval on one batch: each pair's
+    `chamfer_l{1,2,3}` and `matching_l{1,2,3}` (the losses of that pair
+    alone, as `tools/export_torch_weights.py --feats` records them) and its
+    level-3 keypoints `xyz_3_src` / `xyz_3_dst`, as numpy arrays."""
+    from pcd_reg_hregnet_torch.core.device import fp32_numerics
+    from pcd_reg_hregnet_torch.geometry import se3
+    from pcd_reg_hregnet_torch.losses import matching_loss, prob_chamfer_loss
+    objective.eval()
+    out = {k: [] for k in FEATS_TERMS}
+    with torch.no_grad(), fp32_numerics():
+        _, _, (rs, rd) = objective(batch)
+        gt_R, gt_t = se3.unpack(se3.inverse(batch['igt']))
+        for i in range(len(gt_t)):
+            one = slice(i, i + 1)
+            for lvl in (1, 2, 3):
+                x, s, d = f'xyz_{lvl}', f'sigmas_{lvl}', f'desc_{lvl}'
+                out[f'chamfer_l{lvl}'].append(float(prob_chamfer_loss(
+                    rs[x][one], rd[x][one], rs[s][one], rd[s][one], gt_R[one], gt_t[one])))
+                out[f'matching_l{lvl}'].append(float(matching_loss(
+                    rs[x][one], rs[s][one], rs[d][one], rd[x][one], rd[s][one], rd[d][one],
+                    gt_R[one], gt_t[one])))
+    out = {k: np.asarray(v) for k, v in out.items()}
+    out['xyz_3_src'] = rs['xyz_3'].cpu().numpy()
+    out['xyz_3_dst'] = rd['xyz_3'].cpu().numpy()
+    return out
+
+
+def feats_yardstick_run(torch, device: str, pairs=None) -> tuple[dict, dict]:
+    """(the port's `feats_pair_losses` of the exported descriptor checkpoint
+    on the yardstick's first `pairs` test pairs, at its batch size, on
+    `device`; the JAX-CPU yardstick `FEATS_REFERENCE`)."""
+    from pcd_reg_hregnet_torch.data import batch_iterator, load_dataset
+    from pcd_reg_hregnet_torch.train import loop
+    from pcd_reg_hregnet_torch.train.feats import FeatsObjective
+    from pcd_reg_hregnet_torch.utils import checkpoint
+
+    with open(FEATS_REFERENCE) as f:
+        ref = json.load(f)
+    pairs = pairs or ref['reference']['pairs']
+    cfg, weights, _ = checkpoint.read(checkpoint.FEATS)
+    if ref['reference']['batch_size'] != cfg.data.batch_size:
+        raise AssertionError(f'{FEATS_REFERENCE} was made at B={ref["reference"]["batch_size"]}')
+    objective = FeatsObjective(cfg, train_desc=True)
+    objective.load_state_dict(weights, strict=True)
+    objective.to(device)
+    ds = load_dataset(cfg.data, 'test', length=pairs)
+    runs = [feats_pair_losses(torch, objective, loop.to_device(b, torch.device(device)))
+            for b in batch_iterator(ds, cfg.data.batch_size, drop_last=False)]
+    got = {k: np.concatenate([r[k] for r in runs]) for k in runs[0]}
+    return got, {k: np.asarray(v)[:pairs] for k, v in ref.items() if k != 'batches'
+                 and k != 'reference'}
+
+
+def feats_deviation(got: dict, ref: dict) -> tuple[np.ndarray, np.ndarray]:
+    """(|got - ref| / |ref| [pairs, 6] over `FEATS_TERMS`; whether each
+    pair's level-3 keypoints are the same points in both, to 1e-3 m)."""
+    rel = np.stack([np.abs(got[k] - ref[k]) / np.abs(ref[k]) for k in FEATS_TERMS], 1)
+    same = np.array([np.abs(got[f'xyz_3_{s}'][i] - ref[f'xyz_3_{s}'][i]).max() < 1e-3
+                     for i in range(len(rel)) for s in ('src', 'dst')]).reshape(-1, 2).all(1)
+    return rel, same
 
 
 class PlainKernels:
@@ -1028,13 +1167,17 @@ class PlainKernels:
          ptv3.PatchAttentionFunction) = self.saved
 
 
-def _keypoint_hook(model, store: dict):
-    """Record each tower's keypoints of every level at the model's forward."""
-    def hook(module, args, ret):
+def _keypoint_hook(objective, store: dict):
+    """Record each tower's keypoints of every level at the objective's
+    forward (a registration objective's model outputs carry them under
+    `src_feats` / `dst_feats`, a feats objective returns the two towers)."""
+    def hook(module, args, out):
+        ret = out[2]
+        towers = ret if isinstance(ret, tuple) else (ret['src_feats'], ret['dst_feats'])
         store.clear()
-        store.update({f'{side}_{lvl}': ret[f'{side}_feats'][f'xyz_{lvl}'].detach().clone()
-                      for side in ('src', 'dst') for lvl in (1, 2, 3)})
-    return model.register_forward_hook(hook)
+        store.update({f'{side}_{lvl}': tower[f'xyz_{lvl}'].detach().clone()
+                      for side, tower in zip(('src', 'dst'), towers) for lvl in (1, 2, 3)})
+    return objective.register_forward_hook(hook)
 
 
 def profile_window(torch, fn, reps: int):
@@ -1130,16 +1273,42 @@ def train_phase(torch, t0, smi: str, phase: str, experiment: str, weights) -> di
     if set(saved) != {'last', *(f'best_{m}' for m in loop.BEST_METRICS)}:
         raise AssertionError(f'checkpoints written: {saved}')
 
-    # --- per-step launches, TF32 off in the backward, time, memory -----------
+    del state   # the single steps run on states of their own
     it = batch_iterator(train_ds, bs, shuffle=True, seed=cfg.train.seed, epoch=0)
     batches = [loop.to_device(next(it), torch.device('cuda')) for _ in range(TRAIN_TIMED + 4)]
-    state = loop.create_state(cfg, steps_per_epoch, device='cuda', init=weights)
+    step_checks(torch, t0, smi, phase, cfg, per_step, batches,
+                lambda fresh: loop.create_state(cfg, steps_per_epoch, device='cuda',
+                                                init=None if fresh else weights),
+                'PatchAttention_0.Dense_0.weight' if cfg.model.backbone == 'ptv3'
+                else 'desc_extractor_1.ConvBNReLU_0.Dense_0.weight')
+    return launches
+
+
+def step_checks(torch, t0, smi: str, phase: str, cfg, per_step: dict, batches: list,
+                new_state, hook_param: str):
+    """Single train steps of an objective (`new_state(fresh)` makes its state
+    on the card: from the phase's weights, or seeded when `fresh`) on
+    device-resident `batches` (`TRAIN_TIMED` + 4): the launches of single
+    steps and TF32 off in their backward (read by a gradient hook on the
+    first parameter named `*hook_param`, with the process default set to
+    True); the median synced step time, peak memory and device ops
+    (torch.profiler); one step with the kernels against one with the plain
+    versions of all four on the same batch and weights (keypoints identical
+    at every level, else the next batch); and a checkpoint round trip whose
+    next step equals the step without it."""
+    import tempfile
+    from pathlib import Path
+
+    from pcd_reg_hregnet_torch.train import loop
+    from pcd_reg_hregnet_torch.utils import checkpoint
+
+    bs = cfg.data.batch_size
+    wrappers = kernel_wrappers()
+    state = new_state(False)
     step = loop.make_train_step()
     flags = []
-    fe = state.objective.model.feature_extraction
-    param = (fe.ptv3_1.PTv3Block_0.PatchAttention_0.Dense_0 if cfg.model.backbone == 'ptv3'
-             else fe.desc_extractor_1.ConvBNReLU_0.Dense_0)
-    handle = param.weight.register_hook(lambda g: flags.append(
+    param = next(p for n, p in state.objective.named_parameters() if n.endswith(hook_param))
+    handle = param.register_hook(lambda g: flags.append(
         (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)))
     prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
@@ -1177,15 +1346,16 @@ def train_phase(torch, t0, smi: str, phase: str, experiment: str, weights) -> di
         f'idle {1 - busy_ms / host_ms:.1%}), {ops:.0f} device ops/step')
     for ms, n, name in top[:12]:
         print(f'  {ms:8.3f} ms/step {n:6d}x  {name[:100]}')
+    del state
 
     # --- kernels against their plain versions, one step, same weights -------
     differing = 0
     for i, batch in enumerate(batches[:4]):
         runs = []
         for plain in (False, True):
-            st = loop.create_state(cfg, steps_per_epoch, device='cuda', init=weights)
+            st = new_state(False)
             kps = {}
-            hook = _keypoint_hook(st.objective.model, kps)
+            hook = _keypoint_hook(st.objective, kps)
             if plain:
                 with PlainKernels(torch):
                     m = step(st, batch)
@@ -1195,6 +1365,7 @@ def train_phase(torch, t0, smi: str, phase: str, experiment: str, weights) -> di
             runs.append((st, m, dict(kps), {n: p.grad.clone() for n, p in
                                             st.objective.named_parameters() if p.grad is not None}))
         (sk, mk, kk, gk), (_, mp, kp, gp) = runs
+        del runs
         same = {key: bool(torch.equal(kk[key], kp[key])) for key in kk}
         if not all(same.values()):
             pairs = {key: sorted(set(torch.nonzero((kk[key] != kp[key]).any(-1))[:, 0].tolist()))
@@ -1222,7 +1393,7 @@ def train_phase(torch, t0, smi: str, phase: str, experiment: str, weights) -> di
     # --- checkpoint round trip ----------------------------------------------
     with tempfile.TemporaryDirectory() as d:
         checkpoint.save_train(Path(d) / 'ck', sk, cfg)
-        other = loop.create_state(cfg, steps_per_epoch, device='cuda')
+        other = new_state(True)
         checkpoint.restore_train(Path(d) / 'ck', other)
     extra = checkpoint.objective_state(sk.objective)
     if any(not torch.equal(v, checkpoint.objective_state(other.objective)[k])
@@ -1235,9 +1406,277 @@ def train_phase(torch, t0, smi: str, phase: str, experiment: str, weights) -> di
         raise AssertionError(f'after a checkpoint round trip: step {other.step} vs {sk.step}, '
                              f'loss {float(m2["loss"])} vs {float(m1["loss"])}, grad norm '
                              f'{float(m2["grad_norm"])} vs {float(m1["grad_norm"])}')
-    log(phase, t0, f'checkpoint round trip ({len(extra)} objective leaves beside the model\'s: '
-        f'{sorted(extra)[:2]}...): the next step equal (loss {float(m1["loss"]):.6f}, '
-        f'step {sk.step})')
+    log(phase, t0, f'checkpoint round trip ({len(extra)} objective leaves beside the model\'s'
+        + (f': {sorted(extra)[:2]}...' if extra else '') + f'): the next step equal (loss '
+        f'{float(m1["loss"]):.6f}, step {sk.step})')
+
+
+def feats_config(stage: str, batch: int):
+    """reg_v11 (`model_v6` at full width) with the feats recipe of `stage` at
+    batch `batch`, as `python -m pcd_reg_hregnet_torch.train.feats` builds
+    it."""
+    import dataclasses
+
+    from pcd_reg_hregnet_torch.train import experiments, feats
+    cfg = experiments.experiment('reg_v11')
+    return feats.recipe(dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, batch_size=batch)), stage)
+
+
+def feats_step_launches(cfg, stage: str) -> dict:
+    """Each kernel's launches in one feats train step: a pair-forward (both
+    towers); the attention backward only where a loss reads the
+    descriptors, in the descriptor stage."""
+    per = per_forward_launches(cfg.model)
+    return dict(per, patch_attention_bwd=per['patch_attention'] if stage == 'descriptor' else 0)
+
+
+def module_ms(torch, modules, fn, reps: int) -> float:
+    """Device-timeline ms per `fn()` between each module's forward start and
+    end (CUDA events recorded by forward hooks), summed over `modules`."""
+    marks: list = []
+
+    def mark(*_):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append(e)
+    handles = [h for m in modules for h in (m.register_forward_pre_hook(mark),
+                                            m.register_forward_hook(mark))]
+    try:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(a.elapsed_time(b) for a, b in zip(marks[::2], marks[1::2])) / reps
+
+
+def feats_phase(torch, t0, smi: str) -> dict:
+    """The two-stage feats pretrain at full width on the synthetic train
+    split through `train.feats_loop.fit_feats` (counted): the detector stage
+    at B=16 from the exported descriptor checkpoint's weights, then the
+    descriptor stage at B=8 from the detector stage's checkpoint, each
+    `FEATS_STEPS` steps; launches exactly as `feats_step_launches`, every
+    loss term finite, the detector bit-identical through the descriptor
+    stage; then each stage's `step_checks`, and the detector stage's PTv3
+    forward, which no loss of that stage reads, timed."""
+    import tempfile
+    from pathlib import Path
+
+    from pcd_reg_hregnet_torch.data import batch_iterator, load_dataset
+    from pcd_reg_hregnet_torch.train import loop
+    from pcd_reg_hregnet_torch.train.feats import create_feats_state
+    from pcd_reg_hregnet_torch.train.feats_loop import fit_feats
+    from pcd_reg_hregnet_torch.utils import checkpoint
+
+    wrappers = kernel_wrappers()
+    total = {k: 0 for k in wrappers}
+    final = {}
+    start = str(checkpoint.FEATS)
+    with tempfile.TemporaryDirectory() as log_dir:
+        for stage, bs in (('detector', FEATS_DET_BATCH), ('descriptor', BATCH)):
+            phase = f'feats_{stage}'
+            cfg = feats_config(stage, bs)
+            per_step = feats_step_launches(cfg, stage)
+            train_ds = load_dataset(cfg.data, 'train')
+            steps_per_epoch = len(train_ds) // bs
+            stage_dir = Path(log_dir) / stage
+
+            # --- the main path, counted -----------------------------------
+            for w in wrappers.values():
+                w.launches = 0
+            t = time.perf_counter()
+            state, _ = fit_feats(cfg, stage=stage, pretrain_detector=start, log_dir=str(stage_dir),
+                                 max_steps=FEATS_STEPS, datasets=(train_ds,), device='cuda')
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t
+            launches = {k: w.launches for k, w in wrappers.items()}
+            for k in total:
+                total[k] += launches[k]
+            log(phase, t0, f'fit_feats({stage}, B={bs} x {cfg.data.pcd_min_samples} points, '
+                f'from {Path(start).name}, {FEATS_STEPS} steps) in {fit_s:.2f} s on {smi}; '
+                f'launches {launches}')
+            check_launches(launches, per_step, FEATS_STEPS)
+            with open(stage_dir / 'metrics.jsonl') as f:
+                steps = [json.loads(line) for line in f]
+            if [r['step'] for r in steps] != list(range(1, FEATS_STEPS + 1)):
+                raise AssertionError(f'logged steps {[r["step"] for r in steps]}')
+            terms = ('loss', 'grad_norm') + tuple(
+                k for k in FEATS_TERMS if stage == 'descriptor' or k.startswith('chamfer'))
+            for r in steps:
+                if set(r) & set(FEATS_TERMS) != set(terms) - {'loss', 'grad_norm'} or \
+                        not all(np.isfinite(r[k]) for k in terms):
+                    raise AssertionError(f'step {r["step"]}: {r}')
+            for k in terms:
+                log(phase, t0, f'{k} per step: ' + ', '.join(f'{r[k]:.4f}' for r in steps))
+            log(phase, t0, f'per step exactly {per_step}')
+            weights = checkpoint.read(start)[1]   # what this stage started from
+            final[stage] = {n: p.detach().clone() for n, p in
+                            state.objective.named_parameters()}
+            if stage == 'descriptor':
+                det = [n for n in final[stage] if '.detector_' in n]
+                moved = [n for n in det if not torch.equal(final[stage][n],
+                                                           final['detector'][n])]
+                trained = [n for n in final[stage] if '.ptv3_' in n and not torch.equal(
+                    final[stage][n], weights[n].cuda())]
+                if moved or not det or not trained:
+                    raise AssertionError(f'descriptor stage: {len(moved)} of {len(det)} detector '
+                                         f'parameters moved {moved[:3]}; {len(trained)} PTv3 '
+                                         'parameters trained')
+                log(phase, t0, f'all {len(det)} detector parameters bit-identical to the '
+                    f'detector stage\'s through {FEATS_STEPS} steps; {len(trained)} PTv3 '
+                    'parameters trained')
+            start = str(stage_dir / cfg.train.ckpt_dir / f'feats_{stage}')
+            del state
+
+            it = batch_iterator(train_ds, bs, shuffle=True, seed=cfg.train.seed, epoch=0)
+            batches = [loop.to_device(next(it), torch.device('cuda'))
+                       for _ in range(TRAIN_TIMED + 4)]
+
+            def new_state(fresh, cfg=cfg, stage=stage, weights=weights, spe=steps_per_epoch):
+                st = create_feats_state(cfg, spe, stage=stage, device='cuda')
+                if not fresh:
+                    checkpoint.model_of(st.objective).load_state_dict(weights, strict=True)
+                return st
+            step_checks(torch, t0, smi, phase, cfg, per_step, batches, new_state,
+                        'PatchAttention_0.Dense_0.weight' if stage == 'descriptor'
+                        else 'detector_1.ConvBNReLU_0.Dense_0.weight')
+            if stage == 'detector':
+                st = new_state(False)
+                step = loop.make_train_step()
+                fe = st.objective.feature_extraction
+                encoders = [getattr(fe, f'ptv3_{i + 1}') for i in range(len(cfg.model.levels))]
+                step(st, batches[0])
+                enc_ms = module_ms(torch, encoders, lambda: step(st, batches[1]), 3)
+                step_ms = cuda_ms(torch, lambda: step(st, batches[1]), 3)
+                log(phase, t0, f'the PTv3 encoders\' forward, which no loss of this stage '
+                    f'reads: {enc_ms:.1f} ms of a {step_ms:.1f} ms step ({enc_ms / step_ms:.1%}; '
+                    f'CUDA events on the stream, host-bound, so close to its host time) at '
+                    f'B={bs} on {smi}')
+                del st
+            torch.cuda.empty_cache()
+    return total
+
+
+def feats_losses_phase(torch, t0, smi: str) -> dict:
+    """The exported descriptor checkpoint's feats objective at eval on the
+    yardstick's test pairs (counted): launches exactly per forward; each
+    pair's per-level losses within `FEATS_ANY_RTOL` of the JAX-CPU values,
+    and within `FEATS_PAIR_RTOL` but for at most `FEATS_MAX_OUTSIDE` of the
+    pairs that take JAX's level-3 keypoints; the same forward with the
+    plain versions on the card picks the same keypoints, every loss within
+    `TRAIN_LOSS_TOL`."""
+    from pcd_reg_hregnet_torch.utils import checkpoint
+
+    cfg = checkpoint.load_config(checkpoint.FEATS)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t = time.perf_counter()
+    got, ref = feats_yardstick_run(torch, 'cuda')
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = {k: w.launches for k, w in wrappers.items()}
+    pairs = len(got[FEATS_TERMS[0]])
+    forwards = -(-pairs // cfg.data.batch_size)
+    log('feats_losses', t0, f'{pairs} test pairs at B={cfg.data.batch_size} in {run_s:.2f} s on '
+        f'{smi}; launches {launches}')
+    check_launches(launches, per_forward_launches(cfg.model), forwards)
+    rel, same = feats_deviation(got, ref)
+    for j, k in enumerate(FEATS_TERMS):
+        i = int(np.argmax(rel[:, j]))
+        log('feats_losses', t0, f'{k}: card mean {got[k].mean():.6f}, JAX CPU '
+            f'{ref[k].mean():.6f}; max rel {rel[i, j]:.2e} (pair {i}), median '
+            f'{np.median(rel[:, j]):.2e}')
+    outside = (rel > FEATS_PAIR_RTOL).any(1)
+    log('feats_losses', t0, f'pairs outside rel {FEATS_PAIR_RTOL:g}: '
+        f'{np.flatnonzero(outside).tolist()}; of them with JAX\'s level-3 keypoints '
+        f'{np.flatnonzero(outside & same).tolist()} (at most {FEATS_MAX_OUTSIDE}); with other '
+        f'level-3 keypoints (near-ties) {np.flatnonzero(~same).tolist()}; largest rel '
+        f'{rel.max():.2e} (at most {FEATS_ANY_RTOL:g})')
+    with PlainKernels(torch):
+        plain, _ = feats_yardstick_run(torch, 'cuda')
+    kp_plain = all(np.array_equal(got[k], plain[k]) for k in ('xyz_3_src', 'xyz_3_dst'))
+    rel_plain = max(float(np.max(np.abs(got[k] - plain[k]) / np.abs(plain[k])))
+                    for k in FEATS_TERMS)
+    log('feats_losses', t0, f'the plain versions on the card: level-3 keypoints '
+        f'{"identical" if kp_plain else "DIFFERENT"}, largest rel loss difference '
+        f'{rel_plain:.2e} (at most {TRAIN_LOSS_TOL:g})')
+    if (outside & same).sum() > FEATS_MAX_OUTSIDE or rel.max() > FEATS_ANY_RTOL or \
+            not kp_plain or rel_plain > TRAIN_LOSS_TOL:
+        raise AssertionError(f'feats losses: {int((outside & same).sum())} pairs with JAX\'s '
+                             f'keypoints outside {FEATS_PAIR_RTOL}, largest rel {rel.max()}; '
+                             f'plain versions: keypoints identical {kp_plain}, rel {rel_plain}')
+    return launches
+
+
+def warm_start_phase(torch, t0, smi: str) -> dict:
+    """`train.loop.fit` of reg_v11, as the warm-started checkpoint was trained,
+    with `pretrain_feats` = the exported descriptor checkpoint: before step
+    1 every `feature_extraction` entry is the checkpoint's and every other
+    the seeded init; then `WARM_STEPS` steps and a short validation
+    (counted), launches exactly per step and per val forward, every loss
+    term finite."""
+    import tempfile
+    from pathlib import Path
+
+    from pcd_reg_hregnet_torch.data import load_dataset
+    from pcd_reg_hregnet_torch.train import loop
+    from pcd_reg_hregnet_torch.utils import checkpoint
+
+    cfg = checkpoint.load_config(checkpoint.WARM)
+    bs = cfg.data.batch_size
+    train_ds = load_dataset(cfg.data, 'train')
+    val_ds = load_dataset(cfg.data, 'val', length=TRAIN_VAL_PAIRS)
+    feats_sd = checkpoint.read(checkpoint.FEATS)[1]
+    wrappers = kernel_wrappers()
+    with tempfile.TemporaryDirectory() as log_dir:
+        state, _ = loop.fit(cfg, log_dir=str(Path(log_dir) / 'before'), max_steps=0,
+                            datasets=(train_ds, val_ds), pretrain_feats=str(checkpoint.FEATS),
+                            device='cuda')
+        seeded = loop.create_state(cfg, len(train_ds) // bs, device='cuda')
+        want = seeded.objective.model.state_dict()
+        got = state.objective.model.state_dict()
+        fe = [k for k in got if k.startswith('feature_extraction.')]
+        bad = [k for k in got if not torch.equal(
+            got[k], feats_sd[k].cuda() if k in fe else want[k])]
+        if bad or set(fe) != set(feats_sd):
+            raise AssertionError(f'before step 1: {len(bad)} entries differ {bad[:3]}; '
+                                 f'{len(fe)} feature_extraction entries against '
+                                 f'{len(feats_sd)} in the checkpoint')
+        log('warm_start', t0, f'before step 1: all {len(fe)} feature_extraction entries '
+            f'(parameters and BatchNorm statistics) equal {checkpoint.FEATS.name}\'s, the other '
+            f'{len(got) - len(fe)} the seeded init')
+        del state, seeded
+
+        # --- the main path, counted -------------------------------------------
+        for w in wrappers.values():
+            w.launches = 0
+        t = time.perf_counter()
+        state, val = loop.fit(cfg, log_dir=log_dir, max_steps=WARM_STEPS,
+                              datasets=(train_ds, val_ds), pretrain_feats=str(checkpoint.FEATS),
+                              device='cuda')
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        launches = {k: w.launches for k, w in wrappers.items()}
+        with open(Path(log_dir) / 'metrics.jsonl') as f:
+            steps = [r for r in map(json.loads, f) if r['split'] == 'train']
+    per_step, per_forward = per_step_launches(cfg), per_forward_launches(cfg.model)
+    val_forwards = -(-TRAIN_VAL_PAIRS // bs)
+    log('warm_start', t0, f'fit({cfg.model.name}, B={bs}, pretrain_feats='
+        f'{checkpoint.FEATS.name}, {WARM_STEPS} steps, val on {TRAIN_VAL_PAIRS} pairs) in '
+        f'{fit_s:.2f} s on {smi}; launches {launches}')
+    for k in per_step:
+        if launches[k] != per_step[k] * WARM_STEPS + per_forward[k] * val_forwards:
+            raise AssertionError(f'{k}: {launches[k]} launches, expected {per_step[k]} per step '
+                                 f'and {per_forward[k]} per val forward')
+    if [r['step'] for r in steps] != list(range(1, WARM_STEPS + 1)) or not all(
+            np.isfinite(r[k]) for r in steps for k in ('loss', 'grad_norm') + loss_terms(cfg)) \
+            or not all(np.isfinite(v) for v in val.values()):
+        raise AssertionError(f'warm start: steps {steps}, val {val}')
+    log('warm_start', t0, 'loss per step: ' + ', '.join(f'{r["loss"]:.4f}' for r in steps)
+        + f'; val rre {val["rre"]:.4f} deg, rte {val["rte"]:.4f} m; per step exactly {per_step}')
     return launches
 
 
@@ -1330,7 +1769,7 @@ def main() -> int:
         entries.append(check_attention(torch, lib, kattn, gen, t0))
         entries.append(check_attention_backward(torch, lib, kattn, gen, t0))
 
-    from pcd_reg_hregnet_torch.utils.checkpoint import A1, FLAGSHIP
+    from pcd_reg_hregnet_torch.utils.checkpoint import A1, FLAGSHIP, WARM
     counted = [serve_phase(torch, t0, 'serve', 'model_v6', FLAGSHIP),
                eval_phase(torch, t0, smi, 'eval', FLAGSHIP, EVAL_REFERENCE, EVAL_MAX_OUTSIDE),
                train_phase(torch, t0, smi, 'train', 'reg_v11', FLAGSHIP),
@@ -1338,7 +1777,12 @@ def main() -> int:
                eval_phase(torch, t0, smi, 'a1_eval', A1, A1_EVAL_REFERENCE,
                           A1_EVAL_MAX_OUTSIDE),
                train_phase(torch, t0, smi, 'a1_train', 'reg_v6', A1),
-               presets_phase(torch, t0, smi)]
+               presets_phase(torch, t0, smi),
+               feats_phase(torch, t0, smi),
+               feats_losses_phase(torch, t0, smi),
+               eval_phase(torch, t0, smi, 'warm_eval', WARM, WARM_EVAL_REFERENCE,
+                          WARM_EVAL_MAX_OUTSIDE, WARM_EVAL_SUMMARY_TOL),
+               warm_start_phase(torch, t0, smi)]
     for e in entries:
         e['launches'] = sum(c[e['name']] for c in counted)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',

@@ -7,7 +7,9 @@ Decalibration protocol: val/test use a persisted per-index twist table
 source, and ground truth is ``inverse(igt)``.  The JAX package draws its
 tables from a JAX PRNG, which the port cannot regenerate: it reads the
 tables that `tools/export_torch_weights.py` wrote (the JAX
-`perturbation_table` CSV format) and raises where one is missing.  The
+`perturbation_table` CSV format) and raises where one is missing, or where
+the config's perturbation fields differ from those the exported tables
+were drawn with.  The
 train split draws fresh twists every epoch (`PairDataset.set_epoch`) from a
 numpy generator seeded by (seed, epoch): the JAX package's distribution,
 not its numbers (JAX's threefry stream is not reproduced).
@@ -86,11 +88,27 @@ def apply_decalibration(pcd_right: np.ndarray, twist: np.ndarray) -> tuple[np.nd
     return pts.astype(np.float32), igt
 
 
+# The fields of `DataConfig` that shape an eval twist table.  The exported
+# tables in `port_assets/` were drawn with `DataConfig()`'s values of them
+# (seeds 1 and 2; `tools/export_torch_weights.py`).
+TABLE_FIELDS = ('max_rot_error', 'max_trans_error', 'distribution', 'mag_randomly')
+
+
 def default_table_path(cfg: DataConfig, split: str) -> str:
     """Where a split's twist table lives: under `cfg.path` as in the JAX
-    package, else the exported synthetic tables in `port_assets/`."""
+    package, else the exported synthetic tables in `port_assets/`, which
+    hold only for a config with their `TABLE_FIELDS` (else ValueError)."""
     if cfg.path:
         return os.path.join(cfg.path, f'perturbations_file_{split}.txt')
+    drawn = DataConfig()
+    differ = [f for f in TABLE_FIELDS if getattr(cfg, f) != getattr(drawn, f)]
+    if differ:
+        raise ValueError(
+            f'the exported {split} twist table in port_assets/ was drawn with '
+            + ', '.join(f'{f}={getattr(drawn, f)!r}' for f in differ) + '; this config has '
+            + ', '.join(f'{f}={getattr(cfg, f)!r}' for f in differ)
+            + f'.  The port cannot draw the JAX package\'s tables: set cfg.path to a '
+            f'directory holding perturbations_file_{split}.txt')
     return str(ASSETS_DIR / f'perturbations_{cfg.dataset}_{split}.txt')
 
 
@@ -114,7 +132,8 @@ class PairDataset:
         self.epoch = 0
         self._igts = None
         self._table = None
-        self._perturb_path = perturb_path or default_table_path(cfg, split)
+        self._perturb_path = perturb_path or (None if split == 'train' else
+                                              default_table_path(cfg, split))
 
     @property
     def table(self) -> Optional[np.ndarray]:

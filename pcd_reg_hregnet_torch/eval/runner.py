@@ -27,8 +27,8 @@ ICP_METHODS = (None, 'point_to_point', 'point_to_plane')
 
 def load_model(cfg: Config, weights: str | Path,
                device: str | torch.device = 'cuda') -> torch.nn.Module:
-    """The exported checkpoint at `weights` as a model on `device`; the
-    checkpoint must record `cfg.model`."""
+    """The checkpoint at `weights` (an exported `.npz` or a train checkpoint
+    directory) as a model on `device`; it must record `cfg.model`."""
     model = zoo.build(cfg.model.name, device=device, weights=Path(weights))
     if model.cfg != cfg.model:
         raise ValueError(f'{weights} records another model configuration than '
@@ -45,7 +45,8 @@ def evaluate(cfg: Config, weights: str | Path, *, split: str = 'test',
              device: str | torch.device = 'cuda') -> Dict:
     """Run the model over a split; returns the combined results dict.
 
-    `weights` is an exported checkpoint (`utils/checkpoint.py`).  `icp` in
+    `weights` is an exported `.npz` or a train checkpoint directory
+    (`utils/checkpoint.py::read`).  `icp` in
     {None, 'point_to_point', 'point_to_plane'} appends the refined pose as
     a fourth layer.  A pair succeeds for the recall when its mean
     |per-axis| errors are below `recall_rot_deg` and `recall_trans_m`.

@@ -1,11 +1,14 @@
-"""Evaluate an exported checkpoint over a split (the port's counterpart of
-the JAX package's `eval` sub-command).
+"""Evaluate a checkpoint over a split (the port's counterpart of the JAX
+package's `eval` sub-command).
 
     python -m pcd_reg_hregnet_torch.evaluate --weights port_assets/r5_v11_knn_best_rre.npz \\
         --split test [--icp point_to_plane] [--results out.json] [--device cpu]
 
 `--weights` takes any exported checkpoint (default the flagship, reg_v11;
-`port_assets/r4_v6_50_best_rre.npz` is reg_v6, model_v2).  The
+`port_assets/r4_v6_50_best_rre.npz` is reg_v6, model_v2;
+`port_assets/r4_v11_warm_best_rre.npz` is reg_v11 warm-started from the
+feats pretrain) or a train checkpoint directory the port wrote
+(`runs/torch/ckpt/best_rre`).  The
 configuration is the checkpoint's own (`meta.json`); runs on the card
 unless `--device cpu`.  Prints the summary of the last layer.
 """
@@ -23,7 +26,8 @@ from .utils import checkpoint
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser('python -m pcd_reg_hregnet_torch.evaluate')
     ap.add_argument('--weights', default=str(checkpoint.FLAGSHIP),
-                    help='exported checkpoint (.npz beside its .meta.json)')
+                    help='exported checkpoint (.npz beside its .meta.json) or a train '
+                         'checkpoint directory')
     ap.add_argument('--split', default='test', choices=('val', 'test'))
     ap.add_argument('--icp', default=None, choices=('point_to_point', 'point_to_plane'))
     ap.add_argument('--icp-iters', type=int, default=30)

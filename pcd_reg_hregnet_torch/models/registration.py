@@ -26,10 +26,17 @@ class HierFeatureExtraction(nn.Module):
     the mean-normalised inverse sigmas of level i.  Descriptors come from a
     PTv3 encoder over the keypoints (`backbone='ptv3'`) or, for any other
     backbone, as in the JAX module, from a `DescExtractor` over the
-    detector's grouped neighbourhoods."""
+    detector's grouped neighbourhoods.  Raises `NotImplementedError` for a
+    `compute_dtype` other than float32 and for `seq_axis`, not ported yet."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        if cfg.compute_dtype != 'float32':
+            raise NotImplementedError(
+                f'compute_dtype {cfg.compute_dtype!r} is not ported yet (float32 only)')
+        if cfg.seq_axis is not None:
+            raise NotImplementedError(
+                f'seq_axis {cfg.seq_axis!r}: sequence parallelism is not ported yet')
         self.cfg = cfg
         in_ch = 0
         for i, lvl in enumerate(cfg.levels):
@@ -80,12 +87,6 @@ class RegistrationModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.compute_dtype != 'float32':
-            raise NotImplementedError(
-                f'compute_dtype {cfg.compute_dtype!r} is not ported yet (float32 only)')
-        if cfg.seq_axis is not None:
-            raise NotImplementedError(
-                f'seq_axis {cfg.seq_axis!r}: sequence parallelism is not ported yet')
         self.cfg = cfg
         self.feature_extraction = HierFeatureExtraction(cfg)
         c1, c2, c3 = (lvl.desc_dim for lvl in cfg.levels)

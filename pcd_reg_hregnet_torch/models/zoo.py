@@ -91,7 +91,8 @@ def build(name: str, *, device: str | torch.device = 'cuda', seed: int = 0,
     """Build a model in eval mode on `device`.
 
     Without `weights`: the preset with seeded random weights.  With
-    `weights` (an exported checkpoint, `utils/checkpoint.py`): the model
+    `weights` (an exported `.npz` or a train checkpoint directory such as
+    `runs/.../ckpt/best_rre`; `utils/checkpoint.py::read`): the model
     configuration recorded in the checkpoint, `overrides` on top, its
     model leaves loaded with ``strict=True`` (the objective's, such as the
     MI discriminators, are not the model's); the checkpoint's `DataConfig`

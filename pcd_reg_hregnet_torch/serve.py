@@ -5,8 +5,10 @@ side; `infer_pair` takes raw clouds of any length, range-filters and
 resamples them to the model's input size, and returns the finest pose,
 optionally refined by ICP.  Both run on the card unless the caller passes
 ``device='cpu'``.  They take any model the zoo builds; trained weights:
-``zoo.build('model_v6', weights=utils.checkpoint.FLAGSHIP)`` (reg_v11) or
-``zoo.build('model_v2', weights=utils.checkpoint.A1)`` (reg_v6).
+``zoo.build('model_v6', weights=utils.checkpoint.FLAGSHIP)`` (reg_v11),
+``zoo.build('model_v2', weights=utils.checkpoint.A1)`` (reg_v6), or any
+train checkpoint directory the port wrote,
+``zoo.build('model_v6', weights='runs/torch/ckpt/best_rre')``.
 """
 from __future__ import annotations
 

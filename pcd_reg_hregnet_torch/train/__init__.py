@@ -1,2 +1,2 @@
 """Training (port of `pcd_reg_hregnet_tpu/train/`): the experiment table,
-the registration objective, the optimizer and the loop."""
+the registration objective, the feats pretrain, the optimizer and the loops."""

@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from ..core.config import Config, DataConfig, LossConfig, TrainConfig
+from ..core.config import Config, DataConfig, LevelConfig, LossConfig, TrainConfig
 from ..models.zoo import model_config
 
 
@@ -73,3 +73,38 @@ def experiment(name: str, **overrides) -> Config:
 
 def available() -> list[str]:
     return sorted(_EXPERIMENTS)
+
+
+def add_config_args(ap) -> None:
+    """The command-line options that pick and adjust an experiment
+    (`config_from_args`), and `--max-steps` and `--device`."""
+    ap.add_argument('--experiment', default='reg_v11', choices=available())
+    ap.add_argument('--dataset', default=None, choices=('man', 'audi', 'synthetic'))
+    ap.add_argument('--batch-size', type=int, default=None)
+    ap.add_argument('--epochs', type=int, default=None)
+    ap.add_argument('--max-steps', type=int, default=None)
+    ap.add_argument('--seed', type=int, default=None)
+    ap.add_argument('--npoints', type=int, default=None, help='points per cloud')
+    ap.add_argument('--debug-scale', action='store_true',
+                    help='a small keypoint pyramid and PTv3 stack, for CPU runs')
+    ap.add_argument('--watch', action='store_true', help='log per-module norms')
+    ap.add_argument('--device', default='cuda')
+
+
+def config_from_args(args) -> Config:
+    """The experiment's config with the options of `add_config_args`."""
+    cfg = experiment(args.experiment)
+    data = {k: v for k, v in (('dataset', args.dataset), ('batch_size', args.batch_size),
+                              ('pcd_min_samples', args.npoints)) if v is not None}
+    train = {k: v for k, v in (('epochs', args.epochs), ('seed', args.seed)) if v is not None}
+    if args.watch:
+        train['watch'] = True
+    model = {}
+    if args.debug_scale:
+        model = dict(levels=(LevelConfig(64, 16, (16, 16, 32), 32),
+                             LevelConfig(32, 8, (32, 32, 64), 64),
+                             LevelConfig(16, 8, (64, 64, 128), 128)),
+                     ptv3_patch_sizes=(16, 16, 16), ptv3_depths=(1,), ptv3_num_heads=(2,))
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **data),
+                               train=dataclasses.replace(cfg.train, **train),
+                               model=dataclasses.replace(cfg.model, **model))

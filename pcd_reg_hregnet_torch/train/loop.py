@@ -47,8 +47,9 @@ def create_state(cfg: Config, steps_per_epoch: int, *, device: str | torch.devic
                  init: Optional[str] = None, seed: Optional[int] = None) -> TrainState:
     """A fresh state on `device`: the objective's weights (the model's,
     then the MI discriminators') seeded from `cfg.train.seed` (or `seed`;
-    `models.zoo.init_weights`), or read from the exported checkpoint `init`
-    (`utils/checkpoint.py`; it must record `cfg.model`), the model and the
+    `models.zoo.init_weights`), or read from the checkpoint `init`
+    (`utils/checkpoint.py::read`, exported or a train checkpoint directory;
+    it must record `cfg.model`), the model and the
     objective's other leaves each strictly.  Raises `NotImplementedError`
     for what is not ported."""
     dev = resolve_device(device)
@@ -57,12 +58,12 @@ def create_state(cfg: Config, steps_per_epoch: int, *, device: str | torch.devic
         zoo.init_weights(objective, torch.Generator().manual_seed(
             cfg.train.seed if seed is None else seed))
     else:
-        saved, state_dict = checkpoint.load(init)
+        saved, state_dict, extra = checkpoint.read(init)
         if saved.model != cfg.model:
             raise ValueError(f'{init} records another model configuration than '
                              f'cfg.model:\n{saved.model}\n{cfg.model}')
         objective.model.load_state_dict(state_dict, strict=True)
-        checkpoint.load_objective_state(objective, checkpoint.load_objective(init), init)
+        checkpoint.load_objective_state(objective, extra, init)
     objective.to(dev)
     return TrainState(objective, Optimizer(cfg.train, objective.named_parameters(),
                                            steps_per_epoch))
@@ -176,14 +177,20 @@ def _log(f, record: Dict) -> None:
 
 def fit(cfg: Config, *, log_dir: str = 'runs', max_steps: Optional[int] = None,
         datasets=None, resume: Optional[str] = None, init: Optional[str] = None,
+        pretrain_feats: Optional[str] = None,
         device: str | torch.device = 'cuda') -> tuple[TrainState, Dict[str, float]]:
     """A training run; returns the final state and the last val metrics.
 
     `datasets` can inject (train, val); `max_steps` caps the optimizer steps
-    of the run (counted from a resumed step); `init` starts from an exported
-    checkpoint; `resume` restores a train checkpoint (model, optimizer,
-    step, epoch, best metrics), 'auto' the newest under
-    `<log_dir>/<ckpt_dir>`, and continues at its step, mid-epoch too.
+    of the run (counted from a resumed step); `init` starts from a
+    checkpoint of the model (exported, or a train checkpoint directory);
+    `pretrain_feats` then replaces the model's `feature_extraction`,
+    parameters and BatchNorm statistics, by a feats checkpoint's (a stage
+    directory of `train.feats_loop.fit_feats`, or an exported `.npz`;
+    `train.feats.transplant_backbone`); `resume` restores a train
+    checkpoint (model, optimizer, step, epoch, best metrics), 'auto' the
+    newest under `<log_dir>/<ckpt_dir>`, and continues at its step,
+    mid-epoch too.
     Writes one JSON line per train step and per validation to
     `<log_dir>/metrics.jsonl`, and checkpoints `best_<metric>` on each
     improvement and `last` after every epoch.
@@ -193,6 +200,11 @@ def fit(cfg: Config, *, log_dir: str = 'runs', max_steps: Optional[int] = None,
     bs = cfg.data.batch_size
     steps_per_epoch = max(1, len(train_ds) // bs)
     state = create_state(cfg, steps_per_epoch, device=device, init=init)
+    if pretrain_feats:
+        from .feats import transplant_backbone
+        model = state.objective.model
+        model.load_state_dict(transplant_backbone(checkpoint.read(pretrain_feats)[1],
+                                                  model.state_dict()), strict=True)
     ckpt_dir = os.path.join(log_dir, cfg.train.ckpt_dir)
     if resume == 'auto':
         resume = latest_checkpoint(ckpt_dir)

@@ -168,6 +168,26 @@ class TestPairDataset:
         with pytest.raises(FileNotFoundError, match='export_torch_weights'):
             ds[0]
 
+    @pytest.mark.parametrize('field,value', [('max_rot_error', 10.0), ('max_trans_error', 1.0),
+                                             ('distribution', 'gaussian'),
+                                             ('mag_randomly', False)])
+    def test_committed_tables_refuse_other_perturbations(self, field, value, tmp_path):
+        """The committed val/test tables hold only for the perturbation
+        fields they were drawn with (`DataConfig()`'s): another value with an
+        empty `cfg.path` raises and names the field; the train split (twists
+        drawn per epoch) and a `cfg.path` of the caller's own still load."""
+        cfg = dataclasses.replace(DataConfig(pcd_min_samples=64), **{field: value})
+        for split in ('val', 'test'):
+            with pytest.raises(ValueError, match=f'{field}=') as err:
+                load_dataset(cfg, split, length=2)
+            assert f'{field}={value!r}' in str(err.value)
+        assert load_dataset(cfg, 'train', length=2)[0]['igt'].shape == (4, 4)
+        own = load_dataset(dataclasses.replace(cfg, path=str(tmp_path)), 'test', length=2)
+        assert own._perturb_path == str(tmp_path / 'perturbations_file_test.txt')
+        default = load_dataset(DataConfig(pcd_min_samples=64), 'test', length=2)
+        np.testing.assert_array_equal(default.table, pipeline.read_perturbation_table(
+            str(ASSETS_DIR / 'perturbations_synthetic_test.txt'), 2))
+
 
 class TestBatchIterator:
     @pytest.mark.parametrize('batch,shuffle,drop_last', [

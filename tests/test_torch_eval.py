@@ -12,6 +12,19 @@
   the JAX package's `evaluate` of the same weights.  Per-pair Euler angles
   and RRE within 5e-3 deg, translations and RTE within 5e-4 m: the trained
   forward's 5e-5 / 5e-4 m gates in the evaluator's units.
+* A train checkpoint directory the port wrote (`fit`'s `ckpt/last`) is
+  weights for `zoo.build`, `evaluate` and `python -m
+  pcd_reg_hregnet_torch.evaluate` alike: `reg_v11` and `reg_v6` (MI
+  discriminators, kept out of the model) at small levels after one CPU
+  step; the poses `evaluate` reports equal those of the in-memory model
+  exactly.
+* The warm-started `reg_v11` checkpoint
+  (`port_assets/r4_v11_warm_best_rre.npz`) at full width on the first 2
+  pairs of its JAX-CPU eval (`v11_warm_r4_eval_jax_cpu.json`, no JAX at
+  test time): the three network layers' poses within the card's per-pair
+  gate (`chip_smoke.POSE_TOL_R` / `POSE_TOL_T`).  Its ICP layer is held on
+  the card (`chip_smoke.py` warm_eval): ICP over 8096 points takes about a
+  minute on one CPU thread.
 """
 import dataclasses
 import json
@@ -259,3 +272,75 @@ class TestICPOnlyAndServe:
                           'point_to_plane', max_iters=5)
         np.testing.assert_array_equal(np.asarray(out['transform_icp'], np.float32), want[0].numpy())
         assert 'transform_icp' not in serve.infer_pair(model, src, dst, device='cpu')
+
+
+class TestTrainCheckpointWeights:
+    @pytest.mark.parametrize('name', ['reg_v11', 'reg_v6'])
+    def test_fit_checkpoint_is_weights_everywhere(self, name, tmp_path, monkeypatch):
+        from pcd_reg_hregnet_torch import evaluate as evaluate_cli
+        from pcd_reg_hregnet_torch.data import PairDataset, SyntheticPairSource, batch_iterator
+        from pcd_reg_hregnet_torch.train import experiments, loop
+        from test_torch_model import LEVELS, SMALL
+        cfg = experiments.experiment(name)
+        cfg = cfg.replace(
+            model=dataclasses.replace(cfg.model, levels=LEVELS,
+                                      **(SMALL if cfg.model.backbone == 'ptv3' else {})),
+            data=dataclasses.replace(cfg.data, pcd_min_samples=256, batch_size=2),
+            train=dataclasses.replace(cfg.train, epochs=1))
+        train = PairDataset(SyntheticPairSource(2, 512, seed=0), cfg.data, 'train')
+        test = load_dataset(cfg.data, 'test', length=3)
+        state, _ = loop.fit(cfg, log_dir=str(tmp_path), max_steps=1, datasets=(train, test),
+                            device='cpu')
+        last = tmp_path / 'ckpt' / 'last'
+
+        model = zoo.build(cfg.model.name, device='cpu', weights=last)
+        want_sd = state.objective.model.state_dict()
+        assert set(model.state_dict()) == set(want_sd)
+        assert all(torch.equal(v, want_sd[k]) for k, v in model.state_dict().items())
+        assert model.data_cfg == cfg.data
+        if cfg.loss.mi:   # the discriminators are the objective's, not the model's
+            assert checkpoint.read(last)[2] and not any('mi_loss' in k for k in want_sd)
+
+        got = evaluate(cfg, last, dataset=test, device='cpu')
+        mem = calib_eval.MultiLayerCalibEval(3, 0.1, 1.0)
+        ref = state.objective.model.eval()
+        with torch.no_grad():
+            for batch in batch_iterator(test, 2, drop_last=False):
+                out = ref(torch.from_numpy(batch['uncalibed_pcd']),
+                          torch.from_numpy(batch['pcd_left']))
+                for layer, (R, t) in enumerate(zip(out['rotation'], out['translation'])):
+                    mem.add_batch(layer, batch['igt'], se3.pack(R, t))
+        for layer in range(3):
+            np.testing.assert_array_equal(got[f'layer_{layer}']['pred_calib'],
+                                          mem.evaluators[layer].get_results()['pred_calib'])
+
+        # the command line takes the directory too (on 3 pairs)
+        seen = []
+
+        def small(cfg_, weights, **kw):
+            seen.append((cfg_, weights))
+            return evaluate(cfg_, weights, dataset=test, **kw)
+        monkeypatch.setattr(evaluate_cli, 'evaluate', small)
+        assert evaluate_cli.main(['--weights', str(last), '--device', 'cpu']) == 0
+        assert seen == [(cfg, str(last))]
+
+
+class TestWarmCheckpoint:
+    def test_first_pairs_match_the_jax_cpu_eval(self):
+        import chip_smoke
+        from pcd_reg_hregnet_torch.core.config import ASSETS_DIR
+        with open(ASSETS_DIR / 'v11_warm_r4_eval_jax_cpu.json') as f:
+            ref = json.load(f)
+        meta = ref['reference']
+        cfg = checkpoint.load_config(checkpoint.WARM)
+        assert (meta['split'], meta['batch_size'], ref['model']) == ('test', 8, cfg.model.name)
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, batch_size=2))
+        got = evaluate(cfg, checkpoint.WARM, dataset=load_dataset(cfg.data, 'test', length=2),
+                       device='cpu')
+        first = {k: {'pred_calib': ref[k]['pred_calib'][:2]} for k in ref
+                 if k.startswith('layer_')}
+        dev = calib_eval.pose_deviation(got, first)
+        assert sorted(dev) == ['layer_0', 'layer_1', 'layer_2']
+        for name, (dR, dt) in dev.items():
+            assert dR.max() <= chip_smoke.POSE_TOL_R and dt.max() <= chip_smoke.POSE_TOL_T, \
+                (name, dR, dt)

@@ -4,7 +4,11 @@ Each file is a results JSON of `evaluate` (either package) over the same
 split.  For every two files and every layer both hold, prints how many
 pairs put a pose outside the card-vs-CPU gate (rotation entries 1e-3,
 translation 1e-2 m), which pairs, the largest deviations, and each file's
-rre_deg, rte_m and recall.  Poses are rebuilt from `pred_calib`.
+rre_deg, rte_m and recall.  Poses are rebuilt from `pred_calib`.  Then
+the spread of the summary: the standard deviation of the mean of the
+per-pair differences d of rre, rte and the recall's success flag,
+sqrt(sum d^2) / n, the noise a summary gate must hold a correct
+implementation through.
 
     python tools/compare_evals.py port_assets/v11_r5_eval_jax_cpu.json card.json cpu.json
 """
@@ -42,7 +46,20 @@ def main() -> int:
                   f'{np.median(dR):.2e}; rre_deg {np.mean(la["rre"]):.5f} / '
                   f'{np.mean(lb["rre"]):.5f}, rte_m {np.mean(la["rte"]):.5f} / '
                   f'{np.mean(lb["rte"]):.5f}, recall {la["recall"]:.4f} / {lb["recall"]:.4f}')
+            sd = {k: float(np.sqrt(np.sum(d * d)) / len(d)) for k, d in (
+                ('rre', np.subtract(la['rre'], lb['rre'])),
+                ('rte', np.subtract(la['rte'], lb['rte'])),
+                ('recall', success(la).astype(float) - success(lb)))}
+            print(f'  {name}: sd of the mean difference: rre {sd["rre"]:.5f} deg, rte '
+                  f'{sd["rte"]:.5f} m, recall {sd["recall"]:.5f}')
     return 0
+
+
+def success(layer: dict, rot_deg: float = 1.0, trans_m: float = 0.1) -> np.ndarray:
+    """Each pair's recall success: mean |per-axis| errors below the
+    evaluator's thresholds (`eval/calib_eval.py`)."""
+    e = np.abs(np.asarray(layer['error_calib']))
+    return (e[:, :3].mean(1) < rot_deg) & (e[:, 3:].mean(1) < trans_m)
 
 
 if __name__ == '__main__':

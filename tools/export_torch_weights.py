@@ -11,19 +11,34 @@ writes, into `port_assets/`:
   (`params/feature_extraction/...`); the objective's other submodules, the
   MI discriminators, keep theirs under `objective/`
   (`objective/params/mi_loss/global_d/Dense_0/kernel`), which no model leaf
-  can start with; `opt_state` is left out;
+  can start with.  A feats pretrain checkpoint (`train/feats.py`'s
+  `FeatsObjective`) has `feature_extraction` alone at its top and no
+  `model/`: its leaves are written as they are
+  (`params/feature_extraction/...`, `batch_stats/feature_extraction/...`).
+  `opt_state` is left out;
 * `NAME.meta.json`: the checkpoint's `meta.json` as it is;
 * `perturbations_synthetic_{val,test}.txt`: the JAX package's eval twist
   tables (`data/pipeline.py::perturbation_table`, seeds 1 and 2), which the
   port cannot regenerate without JAX's PRNG.  Every checkpoint here shares
   one `DataConfig`, so the tables are shared: an existing table that the
   checkpoint's config would make differently is an error, never replaced;
-* with `--eval`: `<vX>_<rY>_eval_jax_cpu.json` (for `rY_vX_...`), the JAX
+* with `--eval`: `<tag>_<rY>_eval_jax_cpu.json` (for `rY_<tag>_<dir>`, `dir`
+  the checkpoint's own directory, e.g. `r4_v11_warm_best_rre` ->
+  `v11_warm_r4_eval_jax_cpu.json`; the flagship's and A1's, written before
+  the name carried the variant, keep theirs: `EVAL_NAMES`), the JAX
   package's own `eval.runner.evaluate(cfg, state, split='test',
   icp='point_to_plane')` of the checkpoint on the CPU (exact kNN there),
-  the port's yardstick.
+  the port's yardstick;
+* with `--feats` (a descriptor-stage feats checkpoint):
+  `<tag>_<rY>_feats_jax_cpu.json`, the JAX package's
+  `FeatsObjective(train_desc=True)` at `train=False` on the first
+  `--feats-pairs` synthetic test pairs at the checkpoint's batch size: each
+  pair's `chamfer_l{1,2,3}` and `matching_l{1,2,3}` (the losses on that
+  pair alone), each batch's metrics, and each pair's level-3 keypoints
+  `xyz_3` of both clouds.
 
     JAX_PLATFORMS=cpu python tools/export_torch_weights.py [--ckpt NAME] [--eval] [--pairs N]
+    JAX_PLATFORMS=cpu python tools/export_torch_weights.py --ckpt r5_feats_desc_feats_descriptor --feats
 """
 from __future__ import annotations
 
@@ -43,6 +58,10 @@ sys.path.insert(0, REPO)
 FLAGSHIP = 'r5_v11_knn_best_rre'
 SPLIT_SEEDS = {'val': 1, 'test': 2}
 SPLIT_LENGTHS = {'val': 256, 'test': 256}
+# yardsticks named before the name carried the run's variant
+EVAL_NAMES = {'r5_v11_knn_best_rre': 'v11_r5_eval_jax_cpu.json',
+              'r4_v6_50_best_rre': 'v6_r4_eval_jax_cpu.json'}
+FEATS_PAIRS = 16
 
 
 def tarball(name: str) -> list:
@@ -87,6 +106,9 @@ def flat_leaves(variables: dict) -> dict:
 
     for coll in ('params', 'batch_stats'):
         tree = variables[coll]
+        if tree and set(tree) == {'feature_extraction'}:   # a feats pretrain checkpoint
+            walk(tree, (coll,))
+            continue
         if tree and 'model' not in tree:
             raise KeyError(f'{coll}: no top-level key model in {sorted(tree)}')
         for top, sub in tree.items():
@@ -115,10 +137,35 @@ def write_tables(out_dir: str, data_cfg) -> None:
             os.replace(fresh, path)
 
 
-def eval_name(name: str) -> str:
-    """`r5_v11_knn_best_rre` -> `v11_r5_eval_jax_cpu.json`."""
-    run, model = name.split('_')[:2]
-    return f'{model}_{run}_eval_jax_cpu.json'
+def yardstick_name(name: str, ckpt_dir: str, kind: str) -> str:
+    """`r4_v11_warm_best_rre` (directory `best_rre`), 'eval' ->
+    `v11_warm_r4_eval_jax_cpu.json`; `EVAL_NAMES` for the older two."""
+    if kind == 'eval' and name in EVAL_NAMES:
+        return EVAL_NAMES[name]
+    run = name.split('_')[0]
+    tag = name[len(run) + 1:].removesuffix('_' + os.path.basename(ckpt_dir))
+    return f'{tag}_{run}_{kind}_jax_cpu.json'
+
+
+def test_pairs(cfg, pairs: int):
+    """The JAX package's synthetic test split cut to its first `pairs`
+    (the twist table made for the whole split first)."""
+    from pcd_reg_hregnet_tpu.data import load_dataset
+    ds = load_dataset(cfg.data, 'test')
+    ds.table                       # the whole split's table, before any cut
+    if pairs < len(ds):
+        ds.source.length = pairs
+    return ds
+
+
+def reference_meta(name: str, ds, batch_size: int, seconds: float) -> dict:
+    import jax
+    import numpy as np
+    return {'checkpoint': f'ckpts/{name}.tar.gz' + ('.part.*' if '.part.' in tarball(name)[0]
+                                                    else ''),
+            'platform': jax.devices()[0].platform, 'jax': jax.__version__,
+            'split': 'test', 'pairs': len(ds), 'batch_size': batch_size,
+            'seconds': seconds, 'numpy': np.__version__}
 
 
 def run_eval(name: str, ckpt_dir: str, out_dir: str, pairs: int) -> None:
@@ -126,7 +173,7 @@ def run_eval(name: str, ckpt_dir: str, out_dir: str, pairs: int) -> None:
     import jax
     import numpy as np
     from pcd_reg_hregnet_tpu.core.config import Config
-    from pcd_reg_hregnet_tpu.data import batch_iterator, load_dataset
+    from pcd_reg_hregnet_tpu.data import batch_iterator
     from pcd_reg_hregnet_tpu.eval.runner import evaluate
     from pcd_reg_hregnet_tpu.train.loop import create_state, restore_params
     from pcd_reg_hregnet_tpu.train.objective import RegistrationObjective
@@ -135,10 +182,7 @@ def run_eval(name: str, ckpt_dir: str, out_dir: str, pairs: int) -> None:
         raise RuntimeError('run with JAX_PLATFORMS=cpu: the yardstick is the CPU eval')
     with open(os.path.join(ckpt_dir, 'meta.json')) as f:
         cfg = Config.from_json(json.load(f)['config'])
-    ds = load_dataset(cfg.data, 'test')
-    ds.table                       # the whole split's table, before any cut
-    if pairs < len(ds):
-        ds.source.length = pairs
+    ds = test_pairs(cfg, pairs)
     sample = next(batch_iterator(ds, cfg.data.batch_size, drop_last=False))
     state, _ = create_state(cfg, RegistrationObjective(cfg), sample, 1)
     state = restore_params(ckpt_dir, state)
@@ -147,17 +191,68 @@ def run_eval(name: str, ckpt_dir: str, out_dir: str, pairs: int) -> None:
     out = evaluate(cfg, state, split='test', icp=icp, icp_threshold=icp_threshold,
                    icp_iters=icp_iters, dataset=ds)
     seconds = time.perf_counter() - t
-    out['reference'] = {
-        'made_by': 'tools/export_torch_weights.py --eval',
-        'checkpoint': f'ckpts/{name}.tar.gz' + ('.part.*' if '.part.' in tarball(name)[0] else ''),
-        'platform': jax.devices()[0].platform, 'jax': jax.__version__,
-        'split': 'test', 'pairs': len(ds), 'batch_size': cfg.data.batch_size,
-        'icp': icp, 'icp_threshold': icp_threshold, 'icp_iters': icp_iters,
-        'seconds': seconds, 'numpy': np.__version__,
-    }
-    with open(os.path.join(out_dir, eval_name(name)), 'w') as f:
+    out['reference'] = dict(reference_meta(name, ds, cfg.data.batch_size, seconds),
+                            made_by='tools/export_torch_weights.py --eval', icp=icp,
+                            icp_threshold=icp_threshold, icp_iters=icp_iters)
+    with open(os.path.join(out_dir, yardstick_name(name, ckpt_dir, 'eval')), 'w') as f:
         json.dump(out, f)
     print('eval', len(ds), 'pairs in', round(seconds, 1), 's;', out['summary'])
+
+
+def run_feats(name: str, ckpt_dir: str, out_dir: str, pairs: int) -> None:
+    """The JAX package's descriptor-stage objective at `train=False` on the
+    first `pairs` test pairs, on the CPU: per pair and level the losses of
+    that pair alone, per batch the objective's metrics, per pair `xyz_3`."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from pcd_reg_hregnet_tpu.core.config import Config
+    from pcd_reg_hregnet_tpu.data import batch_iterator
+    from pcd_reg_hregnet_tpu.geometry import se3
+    from pcd_reg_hregnet_tpu.losses import matching_loss, prob_chamfer_loss
+    from pcd_reg_hregnet_tpu.train.feats import FeatsObjective, create_feats_state
+    from pcd_reg_hregnet_tpu.train.loop import restore_params
+
+    if jax.devices()[0].platform != 'cpu':
+        raise RuntimeError('run with JAX_PLATFORMS=cpu: the yardstick is the CPU forward')
+    with open(os.path.join(ckpt_dir, 'meta.json')) as f:
+        cfg = Config.from_json(json.load(f)['config'])
+    ds = test_pairs(cfg, pairs)
+    bs = cfg.data.batch_size
+    objective = FeatsObjective(cfg, train_desc=True)
+    sample = next(batch_iterator(ds, bs, drop_last=False))
+    state, _ = create_feats_state(cfg, objective, sample, 1)
+    state = restore_params(ckpt_dir, state)
+    variables = {'params': state.params, 'batch_stats': state.batch_stats}
+    apply = jax.jit(lambda v, b: objective.apply(v, b, train=False))
+    per_pair = {f'{k}_l{lvl}': [] for k in ('chamfer', 'matching') for lvl in (1, 2, 3)}
+    per_pair.update(xyz_3_src=[], xyz_3_dst=[])
+    batches = []
+    t = time.perf_counter()
+    for batch in batch_iterator(ds, bs, drop_last=False):
+        batch = {k: jnp.asarray(v) for k, v in batch.items()}
+        _, metrics, (rs, rd) = apply(variables, batch)
+        batches.append({k: float(v) for k, v in metrics.items()})
+        gt_R, gt_t = se3.unpack(se3.inverse(batch['igt']))
+        for i in range(len(batch['igt'])):
+            one = slice(i, i + 1)
+            for lvl in (1, 2, 3):
+                x, s, d = f'xyz_{lvl}', f'sigmas_{lvl}', f'desc_{lvl}'
+                per_pair[f'chamfer_l{lvl}'].append(float(prob_chamfer_loss(
+                    rs[x][one], rd[x][one], rs[s][one], rd[s][one], gt_R[one], gt_t[one])))
+                per_pair[f'matching_l{lvl}'].append(float(matching_loss(
+                    rs[x][one], rs[s][one], rs[d][one], rd[x][one], rd[s][one], rd[d][one],
+                    gt_R[one], gt_t[one])))
+            per_pair['xyz_3_src'].append(np.asarray(rs['xyz_3'][i], np.float32).tolist())
+            per_pair['xyz_3_dst'].append(np.asarray(rd['xyz_3'][i], np.float32).tolist())
+    seconds = time.perf_counter() - t
+    out = dict(per_pair, batches=batches,
+               reference=dict(reference_meta(name, ds, bs, seconds),
+                              made_by='tools/export_torch_weights.py --feats',
+                              objective='FeatsObjective(train_desc=True), train=False'))
+    with open(os.path.join(out_dir, yardstick_name(name, ckpt_dir, 'feats')), 'w') as f:
+        json.dump(out, f)
+    print('feats', len(ds), 'pairs in', round(seconds, 1), 's;', batches)
 
 
 def main() -> int:
@@ -169,6 +264,9 @@ def main() -> int:
                     help='also write the JAX-CPU eval of the test split (long)')
     ap.add_argument('--pairs', type=int, default=SPLIT_LENGTHS['test'],
                     help='evaluate the first N test pairs only')
+    ap.add_argument('--feats', action='store_true',
+                    help='also write the JAX-CPU feats losses of a descriptor-stage checkpoint')
+    ap.add_argument('--feats-pairs', type=int, default=FEATS_PAIRS)
     args = ap.parse_args()
 
     import numpy as np
@@ -189,6 +287,8 @@ def main() -> int:
               f'{sum(a.nbytes for a in leaves.values()) / 2**20:.1f} MiB -> {args.out}')
         if args.eval:
             run_eval(args.ckpt, ckpt_dir, args.out, args.pairs)
+        if args.feats:
+            run_feats(args.ckpt, ckpt_dir, args.out, args.feats_pairs)
     finally:
         shutil.rmtree(tmp)
     return 0
