@@ -38,7 +38,12 @@ Phases, each printing its own line with seconds:
    one; timed back to back and as device time beside its bounds (3xTF32 and
    f32 CUDA cores) and SDPA's backward, with the sweep of tilings behind
    `plan_backward` (a note where its choice reads more than 5% slower than
-   the sweep's best);
+   the sweep's best).  Then K3b in bf16 the same way (bf16 mma.sync, the
+   plain backward's f32 result cast to bf16, within `ATTN_BWD_TOL_BF16`
+   of each gradient's largest value; K3's log-sum-exp from bf16 inputs
+   within `ATTN_LSE_TOL`), beside SDPA's bf16 backward and its bound on
+   the bf16 tensor cores.  K3 and K3b each have an f32 and a bf16 row in
+   the JSON line;
 4. serve: `model_v6` at full width (8096-point clouds, 1024/512/256
    keypoints, PTv3 depths (2,2,2)) with the trained flagship weights
    (`port_assets/r5_v11_knn_best_rre.npz`, the JAX package's `reg_v11`
@@ -77,23 +82,41 @@ Phases, each printing its own line with seconds:
    within `TRAIN_LOSS_TOL`, each gradient within `TRAIN_GRAD_TOL` of the
    global norm); and a checkpoint round trip whose next step equals the
    step without it;
-7. a1_serve: phase 4 for the trained A1 checkpoint, `model_v2` (conv
+7. bf16_serve: phase 4 for the flagship in bf16 (`compute_dtype='bfloat16'`
+   over the checkpoint's config, as `--compute-dtype` serves it):
+   launches exactly K1 2, K2 4 and K3 36 per forward, K3 counted in bf16;
+   poses finite and f32; the card's B=1 poses against the port's CPU bf16
+   forward within `BF16_POSE_TOL`; the B=1 and B=8 medians beside phase
+   4's;
+8. bf16_eval: phase 5 in bf16 against `BF16_EVAL_REFERENCE` (the JAX
+   package's CPU eval of the flagship in bf16), limits
+   `BF16_EVAL_MAX_OUTSIDE`, `BF16_EVAL_SUMMARY_TOL` and the bf16-sized
+   per-pair gate `BF16_EVAL_PAIR_GATE`; the card's bf16
+   summary printed beside its f32 one (the accuracy cost of serving in
+   bf16, no gate);
+9. bf16_train: phase 6 for `reg_v11` in bf16 from the flagship: launches
+   exactly 2/4/36/36 per step with K3 and K3b in bf16, every step finite,
+   the kernels-vs-plain step within `BF16_TRAIN_TOL`, median step ms, peak
+   memory and device ops beside phase 6's, and a checkpoint resumed as the
+   train command takes it without `--compute-dtype` (still bf16, the next
+   step equal);
+10. a1_serve: phase 4 for the trained A1 checkpoint, `model_v2` (conv
    descriptors, FineReg2 MI outputs) with the weights of
    `port_assets/r4_v6_50_best_rre.npz` (the JAX package's `reg_v6`):
    launches exactly K1 2, K2 4, K3 0, K3b 0 per forward;
-8. a1_eval: phase 5 for the same checkpoint, against
+11. a1_eval: phase 5 for the same checkpoint, against
    `port_assets/v6_r4_eval_jax_cpu.json`, with at most
    `A1_EVAL_MAX_OUTSIDE` pairs outside the per-pair gate per layer;
-9. a1_train: phase 6 for `reg_v6` (Tf + chamfer + MI, AdamW, OneCycle,
+12. a1_train: phase 6 for `reg_v6` (Tf + chamfer + MI, AdamW, OneCycle,
    clip 1.0) from the same checkpoint, the MI discriminators included: the
    tf, chamfer and MI terms finite at every step, and the checkpoint round
    trip carrying the discriminators and their optimizer state;
-10. presets: every other registration experiment (`PRESETS`) with seeded
+13. presets: every other registration experiment (`PRESETS`) with seeded
    weights at full width: one B=8 forward through `serve.register` and one
    train step each, launches exactly as the preset implies (K3 and K3b
    only on `model_v6`, K3b only for the levels an optimised loss reaches),
    poses, loss terms (under their JAX names) and gradient norm finite;
-11. feats_detector, feats_descriptor: `train.feats_loop.fit_feats` at full
+14. feats_detector, feats_descriptor: `train.feats_loop.fit_feats` at full
    width on the synthetic train split, `FEATS_STEPS` steps per stage: the
    detector stage at B=16 from the weights of
    `port_assets/r5_feats_desc_feats_descriptor.npz` (the JAX package's
@@ -105,18 +128,18 @@ Phases, each printing its own line with seconds:
    phase 6 (launches, TF32, time, memory, device ops, kernels against plain
    versions, checkpoint round trip), and the detector stage's unread PTv3
    forward timed;
-12. feats_losses: the descriptor checkpoint's objective at eval on the 16
+15. feats_losses: the descriptor checkpoint's objective at eval on the 16
    test pairs of `port_assets/feats_desc_r5_feats_jax_cpu.json` (the JAX
    package's CPU values): each pair's per-level chamfer and matching losses
    within `FEATS_ANY_RTOL` relative, and within `FEATS_PAIR_RTOL` but for
    at most `FEATS_MAX_OUTSIDE` of the pairs that take JAX's level-3
    keypoints; the plain versions on the card pick the same keypoints and
    give every loss within `TRAIN_LOSS_TOL`;
-13. warm_eval: phase 5 for the warm-started `reg_v11` checkpoint
+16. warm_eval: phase 5 for the warm-started `reg_v11` checkpoint
    (`port_assets/r4_v11_warm_best_rre.npz`) against
    `port_assets/v11_warm_r4_eval_jax_cpu.json`, limits
    `WARM_EVAL_MAX_OUTSIDE` and `WARM_EVAL_SUMMARY_TOL`;
-14. warm_start: `train.loop.fit` of `reg_v11` with `pretrain_feats` = the
+17. warm_start: `train.loop.fit` of `reg_v11` with `pretrain_feats` = the
    descriptor export: before step 1 every `feature_extraction` entry is the
    checkpoint's and every other the seeded init; `WARM_STEPS` steps and a
    short validation, launches exactly 2/4/36/36 per step, all finite.
@@ -126,7 +149,8 @@ limit, the total seconds, and the result line.  In the JSON line, `ms`,
 `plain_ms`, `bound_ms` and `library_ms` add up the kernel's calls in one
 B=8 pair-forward (both towers; for K3b, the backward of one B=8 train
 step); `launches` is the sum of the counts over the main paths of phases
-4-14, each counted from 0.  Exits non-zero, with no
+4-17, each counted from 0 (K3 and K3b per dtype: the f32 rows count f32
+launches only).  Exits non-zero, with no
 result line, when there is no CUDA device or any phase fails.
 """
 from __future__ import annotations
@@ -191,6 +215,7 @@ PRESETS = ('reg_v0', 'reg_v1', 'reg_v2', 'reg_v3', 'reg_v4', 'reg_v5', 'reg_v7',
 # tensor's max |value| (f32 sums in another order; the forward's 1e-5 is
 # absolute on outputs of order 1, gradients reach ~1e2 at K = 256)
 ATTN_BWD_TOL = 1e-4
+ATTN_BWD_TOL_BF16 = 2e-2   # K3b in bf16: K3's bf16 tolerance, of each gradient's largest value
 # K3's log-sum-exp of each query row (values ~1-10) against the plain one:
 # absolute, f32 round-off of the running max and sum
 ATTN_LSE_TOL = 1e-5
@@ -244,6 +269,60 @@ WARM_EVAL_SUMMARY_TOL = {'layer_0': (0.0108, 0.0057, 0.0166),
                          'layer_2': (EVAL_RRE_TOL, 0.0025, EVAL_RECALL_TOL),
                          'layer_3': (EVAL_RRE_TOL, 0.0025, EVAL_RECALL_TOL)}
 WARM_STEPS = 4           # optimizer steps of the counted warm start
+# the bf16 compute path (phases bf16_serve, bf16_eval, bf16_train), each
+# limit set from the CPU evals and steps before the first card run
+BF16_EVAL_REFERENCE = 'port_assets/v11_r5_eval_bf16_jax_cpu.json'
+# The flagship in bf16 against the JAX package's CPU eval in bf16.  The
+# port's CPU bf16 eval (`python -m pcd_reg_hregnet_torch.evaluate --device
+# cpu --compute-dtype bfloat16 --icp point_to_plane`, 3644-4377 s) puts
+# 245 / 177 / 151 / 151 of 256 pairs outside the per-pair gate at layers
+# 0-3 (tools/compare_evals.py):
+# bf16 moves a pose by ~1e-2 m (median |dt| 1.2 cm at layer 2), and near-ties
+# in bf16 descriptors and sigmas decide the coarse layer; JAX's own bf16
+# eval is farther from its f32 eval (256 / 235 / 199 / 199).  Each limit is
+# the CPU count plus max(2, 3 binomial standard deviations); each summary
+# limit the flagship's gate or 3 standard deviations of the CPU eval's mean
+# difference (rre 0.03554 / 0.00582 / 0.00246 deg, rte 0.02208 / 0.00106 /
+# 0.00077 m, recall 0.02278 / 0.00677 / 0), the larger.
+BF16_EVAL_MAX_OUTSIDE = {'layer_0': 254, 'layer_1': 199, 'layer_2': 174, 'layer_3': 174}
+BF16_EVAL_SUMMARY_TOL = {'layer_0': (0.1067, 0.0663, 0.0684),
+                         'layer_1': (0.0175, 0.0032, 0.0204),
+                         'layer_2': (0.0074, 0.0024, EVAL_RECALL_TOL),
+                         'layer_3': (0.0074, 0.0024, EVAL_RECALL_TOL)}
+# At such counts the gate above holds little, so a second per-pair gate is
+# sized for bf16: R 5e-3 / t 5e-2 m at layers 1-3 (bf16 moves a pose by
+# ~1e-2 m, median |dt| 1.2 cm at layer 2) and R 2e-2 / t 0.25 m at the
+# coarse layer 0 (|dt| 90th percentile 0.24 m: its near-ties).  The port's
+# CPU bf16 eval puts 24 / 11 / 5 / 5 pairs outside it at layers 0-3
+# (tools/compare_evals.py --tol); each limit is that count plus max(2, 3
+# binomial standard deviations).  A fault that moves every pose by a few
+# cm fails it.
+BF16_EVAL_PAIR_GATE = {'layer_0': (2e-2, 0.25, 38), 'layer_1': (5e-3, 5e-2, 21),
+                       'layer_2': (5e-3, 5e-2, 12), 'layer_3': (5e-3, 5e-2, 12)}
+# bf16_serve's card-vs-CPU poses at B=1 by level (R entries, t m), set from
+# the port's own card-vs-CPU bf16 spread: `tools/bf16_device_spread.py
+# --pairs 16` (H100, 700 W) puts the largest at 4.7e-4 / 0.036 m (L1),
+# 2.0e-3 / 0.043 m (L2) and 2.4e-2 / 0.44 m (L3, whose keypoints the
+# weighted-FPS near-ties of bf16 sigmas pick differently in every pair).
+# L1 and L2 at about three times the largest; L3 at the largest with room.
+BF16_POSE_TOL = {3: (5e-2, 0.5), 2: (6e-3, 0.13), 1: (1.5e-3, 0.1)}
+# bf16_train's kernels-vs-plain step (loss relative, each gradient of the
+# global norm).  K3's bf16 path rounds the unnormalised probabilities to
+# bf16 as P.V's operand and K3b rounds p and dS as operands
+# (FlashAttention-2's rounding; the TPU kernel and its `_bwd` keep p in
+# f32, so this is the port's one stated difference in the attention); the
+# plain versions round only their outputs.
+# `tools/bf16_step_spread.py --kernel-rounding 4 --batch 8` emulates those
+# roundings on the CPU, the flagship at full width on the first 4 train
+# batches: loss 0.02-1.84% apart, max |dgrad| 0.23-2.01% of the norm,
+# keypoints identical; the same plain step on coordinates one f32 ulp away
+# moves by 1.05-4.74% / 2.84-5.70% (the bf16 step's own sensitivity, not
+# the kernels').  Limits: twice the largest emulated.  (The first limit,
+# 1e-2 / 1e-2, came from the JAX attention's rounding on one B=2 batch,
+# loss 0.18%, and failed on the card at loss 1.52%: it held the JAX
+# model's rounding, not the kernels'.)
+BF16_TRAIN_TOL = (3.7e-2, 4e-2)
+REPORT: dict = {}        # phase -> numbers the bf16 phases print beside the f32 ones
 
 
 def log(phase: str, t0: float, msg: str) -> None:
@@ -476,11 +555,13 @@ def block_shapes(d, dtype):
     return shapes
 
 
-def check_attention(torch, lib, kattn, gen, t0) -> dict:
+def check_attention(torch, lib, kattn, gen, t0) -> list:
     """K3: its tiling against the compiled one; every (K, d) of the forward
     at B=8 and B=1 (R = 4B), f32 and bf16, against the plain version, timed
-    beside SDPA and its bounds, with the sweep of query rows per block; the
-    shapes the first K3 refused, and strided views, for correctness."""
+    beside SDPA (in the same dtype) and its bounds, with the sweep of query
+    rows per block; the shapes the first K3 refused, and strided views, for
+    correctness.  Returns the f32 and the bf16 rows of the `kernels` line,
+    each the calls of one B=8 forward in that compute dtype."""
     import ctypes
 
     from pcd_reg_hregnet_torch.time_attention import call_ms, device_ms, shapes
@@ -509,10 +590,10 @@ def check_attention(torch, lib, kattn, gen, t0) -> dict:
         return err
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'library_ms': 0.0}
-    dev_fwd = lib_dev_fwd = bound_67 = 0.0
-    max_err = 0.0
-    by = {'bytes': 0.0, 'operations': 0.0}
+    acc = {dt: {'tot': {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'library_ms': 0.0},
+                'dev': 0.0, 'lib_dev': 0.0, 'bound_67': 0.0, 'max_err': 0.0,
+                'by': {'bytes': 0.0, 'operations': 0.0}}
+           for dt in (torch.float32, torch.bfloat16)}
     for B in (BATCH, 1):
         for R, H, K, d in shapes(B):
             scale = d ** -0.5
@@ -552,22 +633,24 @@ def check_attention(torch, lib, kattn, gen, t0) -> dict:
                 if sweep[(p.bm, p.split)] > 1.05 * sweep[best]:
                     log('kernels', t0, f'  note: plan\'s {(p.bm, p.split)} reads '
                         f'{sweep[(p.bm, p.split)] / sweep[best] - 1:.0%} slower than {best}')
-                if dtype == torch.float32 and B == BATCH:   # the forward runs f32
-                    n = ATTN_DEPTH * TOWERS
-                    tot['ms'] += n * ms
-                    tot['plain_ms'] += n * plain_ms
-                    tot['library_ms'] += n * lib_ms
-                    tot['bound_ms'] += n * bound
-                    dev_fwd += n * dev
-                    lib_dev_fwd += n * lib_dev
-                    bound_67 += n * max(b_bytes, b_67)
-                    max_err = max(max_err, err)
-                    by[kind] += bound
-    log('kernels', t0, f'patch_attention per B={BATCH} forward (f32): back to back: '
-        f'kernel {tot["ms"]:.4f} ms, sdpa {tot["library_ms"]:.4f} ms, plain '
-        f'{tot["plain_ms"]:.4f} ms; device time: kernel {dev_fwd:.4f} ms, sdpa '
-        f'{lib_dev_fwd:.4f} ms; bound {tot["bound_ms"]:.4f} ms (3xTF32), '
-        f'{bound_67:.4f} ms (67 TFLOP/s)')
+                if B == BATCH:   # per forward, in the forward's compute dtype
+                    n, a = ATTN_DEPTH * TOWERS, acc[dtype]
+                    a['tot']['ms'] += n * ms
+                    a['tot']['plain_ms'] += n * plain_ms
+                    a['tot']['library_ms'] += n * lib_ms
+                    a['tot']['bound_ms'] += n * bound
+                    a['dev'] += n * dev
+                    a['lib_dev'] += n * lib_dev
+                    a['bound_67'] += n * max(b_bytes, b_67)
+                    a['max_err'] = max(a['max_err'], err)
+                    a['by'][kind] += bound
+    for dtype, a in acc.items():
+        route = '3xTF32' if dtype == torch.float32 else 'bf16 tensor cores'
+        log('kernels', t0, f'patch_attention per B={BATCH} forward ({str(dtype)[6:]}): back to '
+            f'back: kernel {a["tot"]["ms"]:.4f} ms, sdpa {a["tot"]["library_ms"]:.4f} ms, plain '
+            f'{a["tot"]["plain_ms"]:.4f} ms; device time: kernel {a["dev"]:.4f} ms, sdpa '
+            f'{a["lib_dev"]:.4f} ms; bound {a["tot"]["bound_ms"]:.4f} ms ({route}), '
+            f'{a["bound_67"]:.4f} ms (67 TFLOP/s)')
 
     for shape in ATTN_OPENED:   # correctness only
         for dtype in (torch.float32, torch.bfloat16):
@@ -584,40 +667,47 @@ def check_attention(torch, lib, kattn, gen, t0) -> dict:
             err = check(q, k, v, d ** -0.5, buf.transpose(1, 2), 'strided')
             log('kernels', t0, f'patch_attention strided views of [R, K, 3, H, d] = '
                 f'{(R, K, 3, H, d)} into [R, K, H, d] {str(dtype)[6:]}: max|err| {err:.2e}')
-    return {'name': 'patch_attention', 'route': 'cuda',
-            'source': 'pcd_reg_hregnet_torch/csrc/attention.cu',
-            'replaces': 'pcd_reg_hregnet_tpu/ops/pallas/attention.py:31',
-            'max_abs_err': max_err, 'bound_by': max(by, key=by.get), **tot}
+    return [{'name': 'patch_attention' + ('' if dtype == torch.float32 else '_bf16'),
+             'route': 'cuda', 'source': 'pcd_reg_hregnet_torch/csrc/attention.cu',
+             'replaces': 'pcd_reg_hregnet_tpu/ops/pallas/attention.py:31',
+             'max_abs_err': a['max_err'], 'bound_by': max(a['by'], key=a['by'].get), **a['tot']}
+            for dtype, a in acc.items()]
 
 
-def attn_bwd_bounds(R, H, K, d):
+def attn_bwd_bounds(R, H, K, d, esize=4):
     """(bytes, operations) times in ms of one K3b call: q, k, v, o, g read
-    once and dq, dk, dv written once over HBM (f32); the five K*K*d products
-    (s, recomputed since p is not an input, then dp, dv, dq, dk) at 3xTF32
-    on the tensor cores (495/3 TFLOP/s), which is what the kernel runs
-    them on; also returned, third, the operations against the 67 TFLOP/s of
+    once and dq, dk, dv written once over HBM (4 or 2 bytes each; in bf16
+    also the f32 log-sum-exp); the five K*K*d products (s, recomputed since
+    p is not an input, then dp, dv, dq, dk) on the tensor cores, what the
+    kernel runs them on: at 3xTF32 (495/3 TFLOP/s) in f32, at the bf16 peak
+    in bf16; also returned, third, the operations against the 67 TFLOP/s of
     f32 on the CUDA cores (the route of the kernel's first, two-pass
     version)."""
-    nbytes = 8 * R * H * K * d * 4
+    nbytes = 8 * R * H * K * d * esize + (4 * R * H * K if esize == 2 else 0)
     flops = 10 * R * H * K * K * d
-    return (nbytes / HBM_BYTES_S * 1e3, flops / (TF32_FLOPS_S / 3) * 1e3,
-            flops / F32_FLOPS_S * 1e3)
+    rate = TF32_FLOPS_S / 3 if esize == 4 else BF16_FLOPS_S
+    return (nbytes / HBM_BYTES_S * 1e3, flops / rate * 1e3, flops / F32_FLOPS_S * 1e3)
 
 
-def check_attention_backward(torch, lib, kattn, gen, t0) -> dict:
-    """K3b: its tilings against the compiled ones; against the plain
-    backward (full f32) at every (K, d) of the train step at B=8 and B=1
-    and at every `ATTN_OPENED` shape, in every block tiling, on fresh
+def check_attention_backward(torch, lib, kattn, gen, t0, dtype=None) -> dict:
+    """K3b in `dtype` (f32 by default, or bf16): its tilings against the
+    compiled ones; against the plain backward (f32 inside, `ATTN_BWD_TOL`
+    of each gradient's largest value; bf16 `ATTN_BWD_TOL_BF16`) at every
+    (K, d) of the train step at B=8 and B=1 and at every `ATTN_OPENED`
+    shape, in every block tiling, on fresh
     strided views (q, k, v of a [R, K, 3, H, d] projection, g of an
     [R, K, H, d] gradient, dq, dk, dv into one [R, K, 3, H, d] buffer), with
     the log-sum-exp that K3 writes held against the plain one; two calls on
     the same inputs bit-identical; timed per train step (36 calls at B=8)
     back to back and as device time, beside its bounds and the backward of
-    SDPA on the same f32 shapes, with the sweep of block tilings."""
+    SDPA on the same shapes and dtype, with the sweep of block tilings."""
     import ctypes
 
     from pcd_reg_hregnet_torch.time_attention import call_ms, device_ms, shapes
     F = torch.nn.functional
+    dtype = dtype or torch.float32
+    name = str(dtype).split('.')[-1]
+    tol = ATTN_BWD_TOL if dtype == torch.float32 else ATTN_BWD_TOL_BF16
     a, b, c, e = (ctypes.c_int() for _ in range(4))
     compiled = []
     while lib.lib.pcdreg_attention_bwd_tiling(len(compiled), a, b) > 0:
@@ -628,12 +718,13 @@ def check_attention_backward(torch, lib, kattn, gen, t0) -> dict:
     for K in (1, 33, 64, 100, 128, 256, 512, 513, 1024):
         for d in (1, 5, 8, 16, 24, 32, 64, 100, 128, 129, 256, 300):
             for tile in kattn.BWD_TILES:
-                p = kattn.plan_backward(1, 1, K, d, tile)
-                smem = lib.lib.pcdreg_attention_bwd_plan(K, d, *tile, a, b, c, e)
+                p = kattn.plan_backward(1, 1, K, d, tile, dtype=dtype)
+                smem = lib.lib.pcdreg_attention_bwd_plan(K, d, *tile, kattn._DTYPE_CODES[dtype],
+                                                         a, b, c, e)
                 got = (smem, a.value, b.value, c.value, e.value)
                 if got != (p.smem, p.dp, p.bm, p.stages, p.cluster):
-                    raise AssertionError(f'attention backward plan K={K} d={d} {tile}: csrc '
-                                         f'(smem, dp, bm, stages, cluster) {got} != '
+                    raise AssertionError(f'attention backward plan K={K} d={d} {tile} {name}: '
+                                         f'csrc (smem, dp, bm, stages, cluster) {got} != '
                                          f'ops/kernels {p}')
     tot = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'library_ms': 0.0}
     dev_step = lib_dev_step = bound_67 = 0.0
@@ -644,11 +735,11 @@ def check_attention_backward(torch, lib, kattn, gen, t0) -> dict:
         """Inputs at [R, H, K, d] and the worst max |err| / max |value| of
         dq, dk, dv over every tiling, each launched twice (bit-identical)."""
         scale = d ** -0.5
-        qkv = torch.randn((R, K, 3, H, d), generator=gen).cuda()
+        qkv = torch.randn((R, K, 3, H, d), generator=gen).to('cuda', dtype)
         q, k, v = kattn.unpack_qkv(qkv)
         lse = torch.empty((R, H, K), device='cuda')
         o = kattn.patch_attention(q, k, v, scale, lse=lse)
-        g = torch.randn((R, K, H, d), generator=gen).cuda().transpose(1, 2)
+        g = torch.randn((R, K, H, d), generator=gen).to('cuda', dtype).transpose(1, 2)
         ref = kattn.patch_attention_backward_reference(q, k, v, g, scale)
         lse_err = float((lse - kattn.attention_lse_reference(q, k, scale)).abs().max())
         if not lse_err <= ATTN_LSE_TOL:
@@ -665,12 +756,13 @@ def check_attention_backward(torch, lib, kattn, gen, t0) -> dict:
                     kattn._launch_backward(q, k, v, o, g, scale, kattn.unpack_qkv(buf), lse,
                                            tile)
             torch.cuda.synchronize()
-            errs = [float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+            errs = [float((x.float() - y.float()).abs().max()
+                          / y.float().abs().max().clamp_min(1e-30))
                     for x, y in zip(kattn.unpack_qkv(bufs[0]), ref)]
-            if not max(errs) <= ATTN_BWD_TOL:
-                raise AssertionError(f'patch_attention_backward {(R, H, K, d)} tiling {tile}: '
-                                     f'max |err| / max |value| of dq, dk, dv {errs} > '
-                                     f'{ATTN_BWD_TOL}')
+            if not max(errs) <= tol:
+                raise AssertionError(f'patch_attention_backward {(R, H, K, d)} {name} tiling '
+                                     f'{tile}: max |err| / max |value| of dq, dk, dv {errs} > '
+                                     f'{tol}')
             if not torch.equal(bufs[0], bufs[1]):
                 raise AssertionError(f'patch_attention_backward {(R, H, K, d)} tiling {tile}: '
                                      f'two calls on the same inputs differ')
@@ -699,17 +791,18 @@ def check_attention_backward(torch, lib, kattn, gen, t0) -> dict:
                 return torch.autograd.grad(out, (qs, ks, vs), gs, retain_graph=True)
             lib_ms = call_ms(sdpa_bwd, 20, side)
             lib_dev = device_ms(sdpa_bwd, 20, side)
-            b_bytes, b_ops, b_67 = attn_bwd_bounds(R, H, K, d)
+            b_bytes, b_ops, b_67 = attn_bwd_bounds(R, H, K, d, q.element_size())
             bound = max(b_bytes, b_ops)
             kind = 'bytes' if b_bytes >= b_ops else 'operations'
             p = kattn.plan_backward(R, H, K, d, sms=torch.cuda.get_device_properties(0)
-                                    .multi_processor_count)
-            log('kernels', t0, f'patch_attention_backward B={B} R={R} H={H} K={K} d={d} f32: '
+                                    .multi_processor_count, dtype=dtype)
+            route = '3xTF32' if dtype == torch.float32 else 'bf16 tensor cores'
+            log('kernels', t0, f'patch_attention_backward B={B} R={R} H={H} K={K} d={d} {name}: '
                 f'max|err|/max|value| {err:.2e} (every tiling, two calls bit-identical), lse '
                 f'max|err| {lse_err:.2e}; back to back: kernel {ms * 1e3:.2f} us, plain '
                 f'{plain_ms * 1e3:.2f} us, sdpa backward {lib_ms * 1e3:.2f} us; device time: '
                 f'kernel {dev * 1e3:.2f} us (tiling {(p.bn, p.qs)}, cluster {p.cluster}), sdpa '
-                f'backward {lib_dev * 1e3:.2f} us; bound {bound * 1e3:.2f} us ({kind}, 3xTF32), '
+                f'backward {lib_dev * 1e3:.2f} us; bound {bound * 1e3:.2f} us ({kind}, {route}), '
                 f'{max(b_bytes, b_67) * 1e3:.2f} us (67 TFLOP/s); share of bound {bound / dev:.1%}')
             sweep = {t: device_ms(lambda t=t: kattn._launch_backward(
                 q, k, v, o, g, scale, None, lse, t), 20) for t in kattn.BWD_TILES}
@@ -730,28 +823,37 @@ def check_attention_backward(torch, lib, kattn, gen, t0) -> dict:
                 bound_67 += n * max(b_bytes, b_67)
                 max_err = max(max_err, err)
                 by[kind] += bound
-    log('kernels', t0, f'patch_attention_backward per B={BATCH} train step: back to back: '
-        f'kernel {tot["ms"]:.4f} ms, sdpa backward {tot["library_ms"]:.4f} ms, plain '
+    log('kernels', t0, f'patch_attention_backward per B={BATCH} train step ({name}): back to '
+        f'back: kernel {tot["ms"]:.4f} ms, sdpa backward {tot["library_ms"]:.4f} ms, plain '
         f'{tot["plain_ms"]:.4f} ms; device time: kernel {dev_step:.4f} ms, sdpa backward '
-        f'{lib_dev_step:.4f} ms; bound {tot["bound_ms"]:.4f} ms (3xTF32; share '
+        f'{lib_dev_step:.4f} ms; bound {tot["bound_ms"]:.4f} ms ({route}; share '
         f'{tot["bound_ms"] / dev_step:.1%}), {bound_67:.4f} ms (67 TFLOP/s f32)')
     for shape in ATTN_OPENED:
         _, err, lse_err = case(*shape)
-        log('kernels', t0, f'patch_attention_backward {shape} f32: max|err|/max|value| '
+        log('kernels', t0, f'patch_attention_backward {shape} {name}: max|err|/max|value| '
             f'{err:.2e} over every tiling, two calls bit-identical; lse max|err| {lse_err:.2e}')
-    return {'name': 'patch_attention_bwd', 'route': 'cuda',
+    return {'name': 'patch_attention_bwd' + ('' if dtype == torch.float32 else '_bf16'),
+            'route': 'cuda',
             'source': 'pcd_reg_hregnet_torch/csrc/attention_bwd.cu',
             'replaces': 'pcd_reg_hregnet_tpu/ops/pallas/attention.py:93',
             'max_abs_err': max_err, 'bound_by': max(by, key=by.get), **tot}
 
 
 def per_forward_launches(cfg) -> dict:
-    """Each kernel's launches in one pair-forward (both towers)."""
+    """Each kernel's launches in one pair-forward (both towers), K3 under
+    its compute dtype's name."""
     attn = TOWERS * len(cfg.levels) * sum(cfg.ptv3_depths) if cfg.backbone == 'ptv3' else 0
+    bf16 = cfg.compute_dtype == 'bfloat16'
     return {'fps': TOWERS,
             'weighted_fps': TOWERS * (len(cfg.levels) - 1),
-            'patch_attention': attn,
-            'patch_attention_bwd': 0}
+            'patch_attention': 0 if bf16 else attn,
+            'patch_attention_bf16': attn if bf16 else 0,
+            'patch_attention_bwd': 0,
+            'patch_attention_bwd_bf16': 0}
+
+
+def _bwd_key(cfg) -> str:
+    return 'patch_attention_bwd_bf16' if cfg.compute_dtype == 'bfloat16' else 'patch_attention_bwd'
 
 
 def per_step_launches(cfg) -> dict:
@@ -771,17 +873,37 @@ def per_step_launches(cfg) -> dict:
         levels |= {3}
     if lc.mi:
         levels |= {3} if cfg.model.mi_from_coarse else {2, 3}
-    per_level = per['patch_attention'] // len(cfg.model.levels)
-    return dict(per, patch_attention_bwd=per_level * len(levels))
+    attn = per['patch_attention'] + per['patch_attention_bf16']
+    per_level = attn // len(cfg.model.levels)
+    return dict(per, **{_bwd_key(cfg.model): per_level * len(levels)})
 
 
-def kernel_wrappers() -> dict:
+KERNELS = ('fps', 'weighted_fps', 'patch_attention', 'patch_attention_bf16',
+           'patch_attention_bwd', 'patch_attention_bwd_bf16')
+
+
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count, per dtype too, to 0."""
     from pcd_reg_hregnet_torch.ops.kernels import attention as kattn
     from pcd_reg_hregnet_torch.ops.kernels import fps as kfps
-    return {'fps': kfps.farthest_point_sample,
-            'weighted_fps': kfps.weighted_farthest_point_sample,
-            'patch_attention': kattn.patch_attention,
-            'patch_attention_bwd': kattn.patch_attention_backward}
+    kfps.farthest_point_sample.launches = 0
+    kfps.weighted_farthest_point_sample.launches = 0
+    kattn.reset_counts()
+
+
+def read_launches() -> dict:
+    """The launches since `reset_launches`, by `KERNELS` name: K3 and K3b
+    split by dtype (the f32 names count f32 launches only)."""
+    import torch
+    from pcd_reg_hregnet_torch.ops.kernels import attention as kattn
+    from pcd_reg_hregnet_torch.ops.kernels import fps as kfps
+    fwd, bwd = (w.launches_by_dtype for w in (kattn.patch_attention,
+                                               kattn.patch_attention_backward))
+    return {'fps': kfps.farthest_point_sample.launches,
+            'weighted_fps': kfps.weighted_farthest_point_sample.launches,
+            'patch_attention': fwd[torch.float32], 'patch_attention_bf16': fwd[torch.bfloat16],
+            'patch_attention_bwd': bwd[torch.float32],
+            'patch_attention_bwd_bf16': bwd[torch.bfloat16]}
 
 
 def check_launches(launches: dict, per_forward: dict, forwards: int) -> None:
@@ -806,24 +928,28 @@ def synthetic_pairs(n: int):
     return pairs
 
 
-def serve_phase(torch, t0, phase: str, name: str, weights) -> dict:
-    """A trained checkpoint through the serving entry points on the card:
-    two `infer_pair`, one with point-to-plane ICP, one B=8 `register`
-    (counted), forward times, and the card's B=1 poses against the port's
-    CPU forward."""
+def serve_phase(torch, t0, phase: str, name: str, weights, compute_dtype=None,
+                pose_tol=(POSE_TOL_R, POSE_TOL_T)) -> dict:
+    """A trained checkpoint through the serving entry points on the card,
+    in its own compute dtype or in `compute_dtype`: two `infer_pair`, one
+    with point-to-plane ICP, one B=8 `register` (counted), forward times,
+    and the card's B=1 poses against the port's CPU forward (in the same
+    dtype) within `pose_tol`: (R, t m) at every level, or a dict of them by
+    level (3 the coarsest)."""
     from pcd_reg_hregnet_torch import serve
     from pcd_reg_hregnet_torch.data.pipeline import range_filter, resample
     from pcd_reg_hregnet_torch.models import zoo
     from pcd_reg_hregnet_torch.ops.sampling import fps
 
-    model = zoo.build(name, device='cuda', weights=weights)
+    over = {} if compute_dtype is None else {'compute_dtype': compute_dtype}
+    model = zoo.build(name, device='cuda', weights=weights, **over)
     cfg = model.cfg
     per_forward = per_forward_launches(cfg)
-    wrappers = kernel_wrappers()
     log(phase, t0, f'{name} ({cfg.backbone} backbone) built on the card with the trained weights '
         f'of {weights.name}: {sum(p.numel() for p in model.parameters())} parameters, levels '
         f'{[lvl.nsample for lvl in cfg.levels]}'
-        + (f', depths {cfg.ptv3_depths}' if cfg.backbone == 'ptv3' else ''))
+        + (f', depths {cfg.ptv3_depths}' if cfg.backbone == 'ptv3' else '')
+        + f', compute dtype {cfg.compute_dtype}')
     raw_pairs = synthetic_pairs(3)
     rng = np.random.default_rng(7)
     batch = [make_clouds(rng, N_POINTS) for _ in range(BATCH)]
@@ -831,15 +957,14 @@ def serve_phase(torch, t0, phase: str, name: str, weights) -> dict:
     dst8 = np.stack([d for _, d in batch])
 
     # --- the main path, counted -------------------------------------------
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     t_main = time.perf_counter()
     poses = [serve.infer_pair(model, s, d, device='cuda') for s, d in raw_pairs[:2]]
     pose_icp = serve.infer_pair(model, *raw_pairs[2], device='cuda', icp='point_to_plane')
     out8 = serve.register(model, src8, dst8, device='cuda')
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t_main
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = read_launches()
     forwards = len(raw_pairs) + 1
     log(phase, t0, f'{len(raw_pairs)} infer_pair (one with point-to-plane ICP) + 1 '
         f'register(B={BATCH}) in {main_s:.2f} s; launches {launches}')
@@ -858,6 +983,8 @@ def serve_phase(torch, t0, phase: str, name: str, weights) -> dict:
         raise AssertionError(f'register shapes {tuple(R8.shape)} {tuple(t8.shape)}')
     if not (torch.isfinite(R8).all() and torch.isfinite(t8).all()):
         raise AssertionError('non-finite pose from register')
+    if R8.dtype != torch.float32 or t8.dtype != torch.float32:
+        raise AssertionError(f'register poses in {R8.dtype} / {t8.dtype}, not f32')
     log(phase, t0, f'poses finite; per forward +{per_forward["fps"]} fps, '
         f'+{per_forward["weighted_fps"]} weighted_fps, '
         f'+{per_forward["patch_attention"]} patch_attention')
@@ -877,12 +1004,18 @@ def serve_phase(torch, t0, phase: str, name: str, weights) -> dict:
 
     src8_d = torch.from_numpy(src8).cuda()
     dst8_d = torch.from_numpy(dst8).cuda()
+    medians = REPORT.setdefault(phase, {})
     for b, (src, dst) in ((BATCH, (src8_d, dst8_d)),
                           (1, (src8_d[:1].contiguous(), dst8_d[:1].contiguous()))):
         lo, med, hi = timed(src, dst, SERVE_REPS)
+        medians[f'B={b}'] = med
         log(phase, t0, f'forward B={b}: median {med:.1f} ms ({b / med * 1e3:.1f} pairs/s), '
             f'min {lo:.1f}, max {hi:.1f} over {SERVE_REPS} forwards after one warm-up '
-            f'(host clock; indicative only)')
+            f'(host clock; indicative only)'
+            + (f'; f32 serve phase {REPORT["serve"][f"B={b}"]:.1f} ms'
+               if compute_dtype and 'serve' in REPORT else ''))
+
+    knn_order_cost(torch, t0, phase, model, src8_d, dst8_d)
 
     # --- the card against the port's CPU forward, B=1 ----------------------
     prep = []
@@ -891,7 +1024,7 @@ def serve_phase(torch, t0, phase: str, name: str, weights) -> dict:
         pts, _ = range_filter(pts, 80.0)
         pts, _ = resample(pts, N_POINTS, rng_p)
         prep.append(pts[None])
-    cpu_model = zoo.build(name, device='cpu', weights=weights)
+    cpu_model = zoo.build(name, device='cpu', weights=weights, **over)
     threads = torch.get_num_threads()
     torch.set_num_threads(CPU_THREADS)
     try:
@@ -914,20 +1047,86 @@ def serve_phase(torch, t0, phase: str, name: str, weights) -> dict:
     log(phase, t0, 'keypoints card vs CPU, max|dxyz| (m; a keypoint chosen differently '
         'shows at its level and the coarser ones): '
         + ', '.join(f'L{lvl} {dxyz(lvl):.2e}' for lvl in (1, 2, 3)))
-    worst_r = worst_t = 0.0
+    failed = []
     for lvl, (Rg, tg, Rc, tc) in enumerate(zip(out_gpu['rotation'], out_gpu['translation'],
                                                out_cpu['rotation'], out_cpu['translation'])):
+        level = 3 - lvl
+        tol_r, tol_t = pose_tol[level] if isinstance(pose_tol, dict) else pose_tol
         dr = float((Rg.cpu() - Rc).abs().max())
         dt = float((tg.cpu() - tc).abs().max())
-        worst_r, worst_t = max(worst_r, dr), max(worst_t, dt)
-        log(phase, t0, f'level {3 - lvl}: card vs CPU max|dR| {dr:.2e}, max|dt| {dt:.2e} m')
-    if not (worst_r <= POSE_TOL_R and worst_t <= POSE_TOL_T):
-        raise AssertionError(f'card vs CPU poses: |dR| {worst_r} (tol {POSE_TOL_R}), '
-                             f'|dt| {worst_t} (tol {POSE_TOL_T})')
-    log(phase, t0, f'L1 FPS indices identical card vs CPU; poses within '
-        f'{POSE_TOL_R} / {POSE_TOL_T} m (CPU forward {cpu_s:.1f} s on {CPU_THREADS} '
-        f'threads)')
+        log(phase, t0, f'level {level}: card vs CPU max|dR| {dr:.2e}, max|dt| {dt:.2e} m '
+            f'(limits {tol_r} / {tol_t} m)')
+        if not (dr <= tol_r and dt <= tol_t):
+            failed.append(f'level {level}: |dR| {dr} (tol {tol_r}), |dt| {dt} (tol {tol_t})')
+    if failed:
+        raise AssertionError('card vs CPU poses: ' + '; '.join(failed))
+    log(phase, t0, f'L1 FPS indices identical card vs CPU; poses within their limits '
+        f'(CPU forward {cpu_s:.1f} s on {CPU_THREADS} threads)')
     return launches
+
+
+def knn_order_cost(torch, t0, phase: str, model, src, dst) -> None:
+    """What the kNN's tie order costs a forward: every kNN call of one
+    forward (recorded), timed as `ops.neighbors.knn` (the JAX package's
+    order of ties: a float `topk` of k + 1, the k sorted by (distance,
+    index), the int64 key only for rows tied at the k-th place) and as a
+    plain `torch.topk` of the same distances, each call 5 times after one
+    (CUDA events), summed over the forward's calls."""
+    from pcd_reg_hregnet_torch.models import layers, ptv3
+    from pcd_reg_hregnet_torch.ops import neighbors
+
+    knn, calls = neighbors.knn, []
+
+    def record(query, database, k):
+        calls.append((query, database, k))
+        return knn(query, database, k)
+
+    def topk_knn(query, database, k):
+        return torch.topk(neighbors.pairwise_sqdist(query, database), k, dim=-1,
+                          largest=False, sorted=True)
+    saved = (neighbors.knn, layers.knn, ptv3.knn)
+    try:
+        neighbors.knn = layers.knn = ptv3.knn = record
+        with torch.no_grad():
+            model(src, dst)
+    finally:
+        neighbors.knn, layers.knn, ptv3.knn = saved
+    with torch.no_grad():
+        tie = sum(cuda_ms(torch, lambda c=c: knn(*c), 5) for c in calls)
+        plain = sum(cuda_ms(torch, lambda c=c: topk_knn(*c), 5) for c in calls)
+        tied = rows = 0
+        for q, db, k in calls:
+            if k < db.shape[1]:
+                v = torch.topk(neighbors.pairwise_sqdist(q, db), k + 1, dim=-1,
+                               largest=False, sorted=True).values
+                tied += int((v[..., k - 1] == v[..., k]).sum())
+                rows += v[..., 0].numel()
+    log(phase, t0, f'kNN tie order: the {len(calls)} kNN calls of a B={src.shape[0]} forward '
+        f'take {tie:.3f} ms, with a plain torch.topk {plain:.3f} ms ({tie - plain:+.3f} ms '
+        f'per forward; CUDA events, device and launch time); {tied} of {rows} rows tied at '
+        f'the k-th place (selected again by the int64 key)')
+
+    def forward_ms(reps=10):
+        with torch.no_grad():
+            model(src, dst)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(reps):
+                t = time.perf_counter()
+                model(src, dst)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times))
+    medians = {'tie': [], 'plain': []}
+    for variant in ('tie', 'plain', 'plain', 'tie'):
+        try:
+            if variant == 'plain':
+                neighbors.knn = layers.knn = ptv3.knn = topk_knn
+            medians[variant].append(forward_ms())
+        finally:
+            neighbors.knn, layers.knn, ptv3.knn = saved
+    log(phase, t0, f'kNN tie order, whole forward (host clock, medians of 10, in turns): '
+        f'{medians["tie"]} ms, with a plain torch.topk {medians["plain"]} ms')
 
 
 def eval_breakdown(torch, t0, phase, cfg, weights, meta, batches: int) -> None:
@@ -960,13 +1159,19 @@ def eval_breakdown(torch, t0, phase, cfg, weights, meta, batches: int) -> None:
 
 
 def eval_phase(torch, t0, smi: str, phase: str, weights, reference: str,
-               max_outside: dict, summary_tol: dict | None = None) -> dict:
+               max_outside: dict, summary_tol: dict | None = None,
+               compute_dtype=None, pair_gate: dict | None = None) -> dict:
     """The test split through `eval.runner.evaluate` on the card, held pair
     for pair and layer for layer against the JAX package's CPU eval of the
     same checkpoint (`reference`), with at most `max_outside` pairs per
     layer outside the per-pair gate, and each layer's summary within
     `summary_tol[layer]` (rre deg, rte m, recall), by default
-    `EVAL_RRE_TOL`, `EVAL_RTE_TOL`, `EVAL_RECALL_TOL`."""
+    `EVAL_RRE_TOL`, `EVAL_RTE_TOL`, `EVAL_RECALL_TOL`.  With
+    `compute_dtype`, the checkpoint is served in that dtype (the reference
+    must record the same).  `pair_gate[layer]` = (R, t m, count) adds a
+    second per-pair gate: at most `count` pairs with a pose outside R / t."""
+    import dataclasses
+
     from pcd_reg_hregnet_torch.data import load_dataset
     from pcd_reg_hregnet_torch.eval.calib_eval import pose_deviation
     from pcd_reg_hregnet_torch.eval.runner import evaluate
@@ -976,26 +1181,28 @@ def eval_phase(torch, t0, smi: str, phase: str, weights, reference: str,
         ref = json.load(f)
     meta = ref['reference']
     cfg = checkpoint.load_config(weights)
+    if compute_dtype is not None:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                                 compute_dtype=compute_dtype))
     if meta['batch_size'] != cfg.data.batch_size or meta['split'] != 'test' or \
-            ref['model'] != cfg.model.name:
+            ref['model'] != cfg.model.name or \
+            meta.get('compute_dtype', 'float32') != cfg.model.compute_dtype:
         raise AssertionError(f'{reference} was made at {meta} for {ref["model"]}, the '
                              f'checkpoint evaluates {cfg.model.name} on the test split at '
                              f'B={cfg.data.batch_size}')
     pairs = meta['pairs']
     ds = load_dataset(cfg.data, 'test', length=pairs)
     per_forward = per_forward_launches(cfg.model)
-    wrappers = kernel_wrappers()
 
     # --- the main path, counted -------------------------------------------
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     t_main = time.perf_counter()
     out = evaluate(cfg, weights, split='test', icp=meta['icp'],
                    icp_threshold=meta['icp_threshold'], icp_iters=meta['icp_iters'],
                    dataset=ds, device='cuda')
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t_main
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = read_launches()
     forwards = -(-pairs // cfg.data.batch_size)
     log(phase, t0, f'evaluate(test, B={cfg.data.batch_size}, icp={meta["icp"]}, '
         f'{meta["icp_iters"]} iterations): {pairs} pairs in {eval_s:.2f} s '
@@ -1031,6 +1238,14 @@ def eval_phase(torch, t0, smi: str, phase: str, weights, reference: str,
         if bad.sum() > max_outside[name]:
             failed.append(f'{name}: {int(bad.sum())} pairs outside the per-pair gate, at most '
                           f'{max_outside[name]}: {np.flatnonzero(bad).tolist()}')
+        if pair_gate:
+            tol_r, tol_t, most = pair_gate[name]
+            wide = (dR > tol_r) | (dt > tol_t)
+            log(phase, t0, f'{name}: {int(wide.sum())} pairs outside R {tol_r} / t {tol_t} m '
+                f'(at most {most}) {np.flatnonzero(wide).tolist()}')
+            if wide.sum() > most:
+                failed.append(f'{name}: {int(wide.sum())} pairs outside R {tol_r} / t {tol_t} '
+                              f'm, at most {most}')
         tol_rre, tol_rte, tol_rec = (summary_tol or {}).get(
             name, (EVAL_RRE_TOL, EVAL_RTE_TOL, EVAL_RECALL_TOL))
         if not (abs(rre[0] - rre[1]) <= tol_rre and abs(rte[0] - rte[1]) <= tol_rte
@@ -1042,11 +1257,15 @@ def eval_phase(torch, t0, smi: str, phase: str, weights, reference: str,
         f'{worst[2]} {worst[3]}')
     if failed:
         raise AssertionError('; '.join(failed))
+    stats = ('rre_deg', 'rte_m', 'rre_p95', 'rte_p95')
+    REPORT[phase] = {key: out[key] for key in ('summary', 'summary_network')}
     for key in ('summary', 'summary_network'):
-        log(phase, t0, f'{key}: card ' + ', '.join(
-            f'{k} {out[key][k]:.5f}' for k in ('rre_deg', 'rte_m', 'rre_p95', 'rte_p95'))
-            + '; JAX CPU ' + ', '.join(
-            f'{k} {ref[key][k]:.5f}' for k in ('rre_deg', 'rte_m', 'rre_p95', 'rte_p95')))
+        log(phase, t0, f'{key}: card ' + ', '.join(f'{k} {out[key][k]:.5f}' for k in stats)
+            + '; JAX CPU ' + ', '.join(f'{k} {ref[key][k]:.5f}' for k in stats))
+        if compute_dtype and 'eval' in REPORT:   # what serving in bf16 costs, no gate
+            log(phase, t0, f'{key}: card {compute_dtype} beside the card\'s f32 eval: '
+                + ', '.join(f'{k} {out[key][k]:.5f} vs {REPORT["eval"][key][k]:.5f}'
+                            for k in stats))
     return launches
 
 
@@ -1209,13 +1428,18 @@ def loss_terms(cfg) -> tuple:
                                 if getattr(cfg.loss, t))
 
 
-def train_phase(torch, t0, smi: str, phase: str, experiment: str, weights) -> dict:
-    """A trained checkpoint's own experiment (its recorded config) at full
-    width on the synthetic train split, from the checkpoint (the MI
-    discriminators included): `train.loop.fit` for `TRAIN_STEPS` steps
-    (counted), then per-step launches, the TF32 flags during backward, step
-    time, peak memory and device ops, one step against the plain versions
-    of the kernels, and a checkpoint round trip."""
+def train_phase(torch, t0, smi: str, phase: str, experiment: str, weights,
+                compute_dtype=None, step_tol=(TRAIN_LOSS_TOL, TRAIN_GRAD_TOL)) -> dict:
+    """A trained checkpoint's own experiment (its recorded config, in
+    `compute_dtype` when given) at full width on the synthetic train split,
+    from the checkpoint (the MI discriminators included): `train.loop.fit`
+    for `TRAIN_STEPS` steps (counted), then per-step launches, the TF32
+    flags during backward, step time, peak memory and device ops, one step
+    against the plain versions of the kernels (loss and gradient within
+    `step_tol`), and a checkpoint round trip; with `compute_dtype`, also a
+    resume of its checkpoint as the train command takes it without
+    `--compute-dtype` (the checkpoint's model config), in that dtype."""
+    import dataclasses
     import tempfile
     from pathlib import Path
 
@@ -1224,17 +1448,18 @@ def train_phase(torch, t0, smi: str, phase: str, experiment: str, weights) -> di
     from pcd_reg_hregnet_torch.utils import checkpoint
 
     cfg = checkpoint.load_config(weights)   # the experiment as the checkpoint was trained
+    if compute_dtype is not None:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                                 compute_dtype=compute_dtype))
     bs = cfg.data.batch_size
     per_step = per_step_launches(cfg)
     per_forward = per_forward_launches(cfg.model)
-    wrappers = kernel_wrappers()
     train_ds = load_dataset(cfg.data, 'train')
     val_ds = load_dataset(cfg.data, 'val', length=TRAIN_VAL_PAIRS)
     steps_per_epoch = len(train_ds) // bs
 
     # --- the main path, counted -------------------------------------------
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     with tempfile.TemporaryDirectory() as log_dir:
         t = time.perf_counter()
         state, val = loop.fit(cfg, log_dir=log_dir, max_steps=TRAIN_STEPS,
@@ -1242,15 +1467,16 @@ def train_phase(torch, t0, smi: str, phase: str, experiment: str, weights) -> di
                               device='cuda')
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t
-        launches = {k: w.launches for k, w in wrappers.items()}
+        launches = read_launches()
         with open(Path(log_dir) / 'metrics.jsonl') as f:
             records = [json.loads(line) for line in f]
         saved = sorted(p.name for p in (Path(log_dir) / cfg.train.ckpt_dir).iterdir())
     val_forwards = -(-TRAIN_VAL_PAIRS // bs)
     log(phase, t0, f'fit({experiment}, B={bs} x {cfg.data.pcd_min_samples} points, from '
         f'{weights.name}, {TRAIN_STEPS} steps of the {cfg.train.epochs}-epoch '
-        f'OneCycle schedule, val on {TRAIN_VAL_PAIRS} pairs) in {fit_s:.2f} s on {smi}; '
-        f'launches {launches}; checkpoints {saved}')
+        f'OneCycle schedule, val on {TRAIN_VAL_PAIRS} pairs, compute dtype '
+        f'{cfg.model.compute_dtype}) in {fit_s:.2f} s on {smi}; launches {launches}; '
+        f'checkpoints {saved}')
     for k in per_step:
         want = per_step[k] * TRAIN_STEPS + per_forward[k] * val_forwards
         if launches[k] != want:
@@ -1276,16 +1502,58 @@ def train_phase(torch, t0, smi: str, phase: str, experiment: str, weights) -> di
     del state   # the single steps run on states of their own
     it = batch_iterator(train_ds, bs, shuffle=True, seed=cfg.train.seed, epoch=0)
     batches = [loop.to_device(next(it), torch.device('cuda')) for _ in range(TRAIN_TIMED + 4)]
-    step_checks(torch, t0, smi, phase, cfg, per_step, batches,
-                lambda fresh: loop.create_state(cfg, steps_per_epoch, device='cuda',
-                                                init=None if fresh else weights),
-                'PatchAttention_0.Dense_0.weight' if cfg.model.backbone == 'ptv3'
-                else 'desc_extractor_1.ConvBNReLU_0.Dense_0.weight')
+    def new_state(fresh, cfg=cfg):
+        return loop.create_state(cfg, steps_per_epoch, device='cuda',
+                                 init=None if fresh else weights)
+    REPORT[phase] = step_checks(
+        torch, t0, smi, phase, cfg, per_step, batches, new_state,
+        'PatchAttention_0.Dense_0.weight' if cfg.model.backbone == 'ptv3'
+        else 'desc_extractor_1.ConvBNReLU_0.Dense_0.weight', *step_tol)
+    if compute_dtype is not None:
+        if 'train' in REPORT:
+            log(phase, t0, f'{compute_dtype} step beside the f32 train phase\'s: ' + ', '.join(
+                f'{k} {v:.2f} vs {REPORT["train"][k]:.2f}' for k, v in REPORT[phase].items()))
+        resume_in_dtype(torch, t0, phase, experiment, cfg, new_state, batches)
     return launches
 
 
+def resume_in_dtype(torch, t0, phase: str, experiment: str, cfg, new_state, batches) -> None:
+    """A train checkpoint of `cfg` resumed as `python -m
+    pcd_reg_hregnet_torch.train --experiment EXPERIMENT --resume PATH`
+    takes it, with no `--compute-dtype`: the config comes from the
+    checkpoint, so the resumed state computes in `cfg`'s dtype, and its
+    next step equals the uninterrupted state's."""
+    import argparse
+    import tempfile
+    from pathlib import Path
+
+    from pcd_reg_hregnet_torch.train import experiments, loop
+    from pcd_reg_hregnet_torch.utils import checkpoint
+    step = loop.make_train_step()
+    state = new_state(False)
+    step(state, batches[0])
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save_train(Path(d) / 'ck', state, cfg)
+        ap = argparse.ArgumentParser()
+        experiments.add_config_args(ap)
+        resumed = experiments.config_from_args(
+            ap.parse_args(['--experiment', experiment]),
+            model_base=checkpoint.load_config(Path(d) / 'ck').model)
+        other = new_state(True, resumed)
+        checkpoint.restore_train(Path(d) / 'ck', other)
+    if resumed.model != cfg.model:
+        raise AssertionError(f'resumed without --compute-dtype: {resumed.model.compute_dtype}, '
+                             f'the run was {cfg.model.compute_dtype}')
+    m1, m2 = step(state, batches[1]), step(other, batches[1])
+    if float(m1['loss']) != float(m2['loss']):
+        raise AssertionError(f'resumed step loss {float(m2["loss"])} vs {float(m1["loss"])}')
+    log(phase, t0, f'checkpoint resumed without --compute-dtype: {resumed.model.compute_dtype}, '
+        f'the next step equal (loss {float(m1["loss"]):.6f})')
+
+
 def step_checks(torch, t0, smi: str, phase: str, cfg, per_step: dict, batches: list,
-                new_state, hook_param: str):
+                new_state, hook_param: str, loss_tol: float = TRAIN_LOSS_TOL,
+                grad_tol: float = TRAIN_GRAD_TOL) -> dict:
     """Single train steps of an objective (`new_state(fresh)` makes its state
     on the card: from the phase's weights, or seeded when `fresh`) on
     device-resident `batches` (`TRAIN_TIMED` + 4): the launches of single
@@ -1294,8 +1562,10 @@ def step_checks(torch, t0, smi: str, phase: str, cfg, per_step: dict, batches: l
     True); the median synced step time, peak memory and device ops
     (torch.profiler); one step with the kernels against one with the plain
     versions of all four on the same batch and weights (keypoints identical
-    at every level, else the next batch); and a checkpoint round trip whose
-    next step equals the step without it."""
+    at every level, else the next batch; the loss within `loss_tol`
+    relative, every gradient within `grad_tol` of the global norm); and a
+    checkpoint round trip whose next step equals the step without it.
+    Returns the median step ms, peak GiB and device ops per step."""
     import tempfile
     from pathlib import Path
 
@@ -1303,7 +1573,6 @@ def step_checks(torch, t0, smi: str, phase: str, cfg, per_step: dict, batches: l
     from pcd_reg_hregnet_torch.utils import checkpoint
 
     bs = cfg.data.batch_size
-    wrappers = kernel_wrappers()
     state = new_state(False)
     step = loop.make_train_step()
     flags = []
@@ -1314,10 +1583,9 @@ def step_checks(torch, t0, smi: str, phase: str, cfg, per_step: dict, batches: l
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     try:
         for batch in batches[:2]:
-            for w in wrappers.values():
-                w.launches = 0
+            reset_launches()
             step(state, batch)
-            got = {k: w.launches for k, w in wrappers.items()}
+            got = read_launches()
             if got != per_step:
                 raise AssertionError(f'launches in one train step {got}, expected {per_step}')
     finally:
@@ -1384,8 +1652,8 @@ def step_checks(torch, t0, smi: str, phase: str, cfg, per_step: dict, batches: l
             f'at every level of both towers; loss {loss_k:.6f} vs {loss_p:.6f} (rel '
             f'{abs(loss_k - loss_p) / abs(loss_p):.2e}); max |dgrad| {worst[0]:.3e} '
             f'({worst[1]}) = {worst[0] / norm:.2e} of the global norm {norm:.3f}')
-        if set(gk) != set(gp) or not abs(loss_k - loss_p) <= TRAIN_LOSS_TOL * abs(loss_p) \
-                or not worst[0] <= TRAIN_GRAD_TOL * norm:
+        if set(gk) != set(gp) or not abs(loss_k - loss_p) <= loss_tol * abs(loss_p) \
+                or not worst[0] <= grad_tol * norm:
             raise AssertionError(f'kernels vs plain: loss {loss_k} vs {loss_p}, max |dgrad| '
                                  f'{worst} against the global norm {norm}')
         break
@@ -1409,6 +1677,8 @@ def step_checks(torch, t0, smi: str, phase: str, cfg, per_step: dict, batches: l
     log(phase, t0, f'checkpoint round trip ({len(extra)} objective leaves beside the model\'s'
         + (f': {sorted(extra)[:2]}...' if extra else '') + f'): the next step equal (loss '
         f'{float(m1["loss"]):.6f}, step {sk.step})')
+    return {'median step ms': float(np.median(times)), 'peak GiB': peak / 2**30,
+            'device busy ms': busy_ms, 'device ops': ops}
 
 
 def feats_config(stage: str, batch: int):
@@ -1428,7 +1698,8 @@ def feats_step_launches(cfg, stage: str) -> dict:
     towers); the attention backward only where a loss reads the
     descriptors, in the descriptor stage."""
     per = per_forward_launches(cfg.model)
-    return dict(per, patch_attention_bwd=per['patch_attention'] if stage == 'descriptor' else 0)
+    attn = per['patch_attention'] + per['patch_attention_bf16']
+    return dict(per, **{_bwd_key(cfg.model): attn if stage == 'descriptor' else 0})
 
 
 def module_ms(torch, modules, fn, reps: int) -> float:
@@ -1469,9 +1740,7 @@ def feats_phase(torch, t0, smi: str) -> dict:
     from pcd_reg_hregnet_torch.train.feats import create_feats_state
     from pcd_reg_hregnet_torch.train.feats_loop import fit_feats
     from pcd_reg_hregnet_torch.utils import checkpoint
-
-    wrappers = kernel_wrappers()
-    total = {k: 0 for k in wrappers}
+    total = {k: 0 for k in KERNELS}
     final = {}
     start = str(checkpoint.FEATS)
     with tempfile.TemporaryDirectory() as log_dir:
@@ -1484,14 +1753,13 @@ def feats_phase(torch, t0, smi: str) -> dict:
             stage_dir = Path(log_dir) / stage
 
             # --- the main path, counted -----------------------------------
-            for w in wrappers.values():
-                w.launches = 0
+            reset_launches()
             t = time.perf_counter()
             state, _ = fit_feats(cfg, stage=stage, pretrain_detector=start, log_dir=str(stage_dir),
                                  max_steps=FEATS_STEPS, datasets=(train_ds,), device='cuda')
             torch.cuda.synchronize()
             fit_s = time.perf_counter() - t
-            launches = {k: w.launches for k, w in wrappers.items()}
+            launches = read_launches()
             for k in total:
                 total[k] += launches[k]
             log(phase, t0, f'fit_feats({stage}, B={bs} x {cfg.data.pcd_min_samples} points, '
@@ -1570,14 +1838,12 @@ def feats_losses_phase(torch, t0, smi: str) -> dict:
     from pcd_reg_hregnet_torch.utils import checkpoint
 
     cfg = checkpoint.load_config(checkpoint.FEATS)
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     t = time.perf_counter()
     got, ref = feats_yardstick_run(torch, 'cuda')
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = read_launches()
     pairs = len(got[FEATS_TERMS[0]])
     forwards = -(-pairs // cfg.data.batch_size)
     log('feats_losses', t0, f'{pairs} test pairs at B={cfg.data.batch_size} in {run_s:.2f} s on '
@@ -1630,7 +1896,6 @@ def warm_start_phase(torch, t0, smi: str) -> dict:
     train_ds = load_dataset(cfg.data, 'train')
     val_ds = load_dataset(cfg.data, 'val', length=TRAIN_VAL_PAIRS)
     feats_sd = checkpoint.read(checkpoint.FEATS)[1]
-    wrappers = kernel_wrappers()
     with tempfile.TemporaryDirectory() as log_dir:
         state, _ = loop.fit(cfg, log_dir=str(Path(log_dir) / 'before'), max_steps=0,
                             datasets=(train_ds, val_ds), pretrain_feats=str(checkpoint.FEATS),
@@ -1651,15 +1916,14 @@ def warm_start_phase(torch, t0, smi: str) -> dict:
         del state, seeded
 
         # --- the main path, counted -------------------------------------------
-        for w in wrappers.values():
-            w.launches = 0
+        reset_launches()
         t = time.perf_counter()
         state, val = loop.fit(cfg, log_dir=log_dir, max_steps=WARM_STEPS,
                               datasets=(train_ds, val_ds), pretrain_feats=str(checkpoint.FEATS),
                               device='cuda')
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t
-        launches = {k: w.launches for k, w in wrappers.items()}
+        launches = read_launches()
         with open(Path(log_dir) / 'metrics.jsonl') as f:
             steps = [r for r in map(json.loads, f) if r['split'] == 'train']
     per_step, per_forward = per_step_launches(cfg), per_forward_launches(cfg.model)
@@ -1688,9 +1952,7 @@ def presets_phase(torch, t0, smi: str) -> dict:
     from pcd_reg_hregnet_torch import serve
     from pcd_reg_hregnet_torch.data import batch_iterator, load_dataset
     from pcd_reg_hregnet_torch.train import experiments, loop
-
-    wrappers = kernel_wrappers()
-    total = {k: 0 for k in wrappers}
+    total = {k: 0 for k in KERNELS}
     batch = None
     step = loop.make_train_step()
     for name in PRESETS:
@@ -1702,18 +1964,17 @@ def presets_phase(torch, t0, smi: str) -> dict:
         model = state.objective.model.eval()
         per_forward, per_step = per_forward_launches(cfg.model), per_step_launches(cfg)
         # --- the main path, counted ---------------------------------------
-        for w in wrappers.values():
-            w.launches = 0
+        reset_launches()
         t = time.perf_counter()
         out = serve.register(model, batch['uncalibed_pcd'], batch['pcd_left'], device='cuda')
         torch.cuda.synchronize()
         fwd_ms = (time.perf_counter() - t) * 1e3
-        fwd = {k: w.launches for k, w in wrappers.items()}
+        fwd = read_launches()
         t = time.perf_counter()
         metrics = step(state, batch)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t) * 1e3
-        launches = {k: w.launches for k, w in wrappers.items()}
+        launches = read_launches()
         stepped = {k: launches[k] - fwd[k] for k in launches}
         if fwd != per_forward or stepped != per_step:
             raise AssertionError(f'{name}: launches per forward {fwd} (expected {per_forward}), '
@@ -1766,13 +2027,21 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     with fp32_numerics():   # the plain versions in full f32, as in the model's forward
         entries = check_fps(torch, kfps, t0)
-        entries.append(check_attention(torch, lib, kattn, gen, t0))
+        entries += check_attention(torch, lib, kattn, gen, t0)
         entries.append(check_attention_backward(torch, lib, kattn, gen, t0))
+        entries.append(check_attention_backward(torch, lib, kattn, gen, t0, torch.bfloat16))
 
     from pcd_reg_hregnet_torch.utils.checkpoint import A1, FLAGSHIP, WARM
     counted = [serve_phase(torch, t0, 'serve', 'model_v6', FLAGSHIP),
                eval_phase(torch, t0, smi, 'eval', FLAGSHIP, EVAL_REFERENCE, EVAL_MAX_OUTSIDE),
                train_phase(torch, t0, smi, 'train', 'reg_v11', FLAGSHIP),
+               serve_phase(torch, t0, 'bf16_serve', 'model_v6', FLAGSHIP, 'bfloat16',
+                           BF16_POSE_TOL),
+               eval_phase(torch, t0, smi, 'bf16_eval', FLAGSHIP, BF16_EVAL_REFERENCE,
+                          BF16_EVAL_MAX_OUTSIDE, BF16_EVAL_SUMMARY_TOL, 'bfloat16',
+                          BF16_EVAL_PAIR_GATE),
+               train_phase(torch, t0, smi, 'bf16_train', 'reg_v11', FLAGSHIP, 'bfloat16',
+                           BF16_TRAIN_TOL),
                serve_phase(torch, t0, 'a1_serve', 'model_v2', A1),
                eval_phase(torch, t0, smi, 'a1_eval', A1, A1_EVAL_REFERENCE,
                           A1_EVAL_MAX_OUTSIDE),

@@ -32,11 +32,16 @@ def fp32_numerics():
     convolution and matmul gradients read these flags when they run, after
     the forward's block has exited) and the optimizer step.  The caller's
     settings come back on exit, so nothing else in the process is changed.
+    bf16 matmuls (the bf16 compute path) also lose cuBLAS's reduced-precision
+    reductions: XLA sums bf16 products in f32.
     """
-    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    prev = (matmul.allow_tf32, cudnn.allow_tf32, matmul.allow_bf16_reduced_precision_reduction)
+    matmul.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+        (matmul.allow_tf32, cudnn.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = prev

@@ -108,24 +108,6 @@ struct Tile {
   static constexpr int LD = DP + 16 / (int)sizeof(T);
 };
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two bf16 values, the first in the low half (the lower column or key).
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
 template <typename T, int DP, bool WIDE, int SPLIT>
 __global__ void __launch_bounds__(256)
 attn_kernel(const Args a) {

@@ -5,16 +5,29 @@
 // JAX model's dense path below K = 512 has the same gradient by autodiff).
 //
 // For q, k, v, the forward output o, its gradient g, all [R, H, K, d] f32
-// (R patches, H heads, patch length K, head dim d), and the log-sum-exp of
+// or all bf16 (R patches, H heads, patch length K, head dim d), and the log-sum-exp of
 // each query row that the forward (attention.cu, K3) wrote, per (patch,
 // head):
 //   s = q.k^T * scale, p = exp(s - lse), dp = g.v^T, D = rowsum(g * o)
 //   dv = p^T.g, ds = p * (dp - D), dq = ds.k * scale, dk = ds^T.q * scale
 // (D = rowsum(dp * p), since o = p.v).  Softmax and every sum in f32; any
 // K >= 1 and d >= 1; each tensor with its own strides (last dim contiguous),
-// so dq, dk and dv can be views of one [R, K, 3, H, d] gradient buffer.
-// Deterministic: every sum is taken in a fixed order, with no atomics on
-// values.
+// so dq, dk and dv can be views of one [R, K, 3, H, d] gradient buffer,
+// written in the inputs' dtype.  Deterministic: every sum is taken in a
+// fixed order, with no atomics on values.
+//
+// bf16 (the JAX `_bwd` on bf16 inputs: f32 inside, the results cast back):
+// the same kernel, templated on the element type, with every product one
+// mma.sync.m16n8k16.bf16 accumulating in f32 in place of the three tf32
+// ones.  P and dS are rounded to bf16 only as the operands of the products
+// that take them (FlashAttention-2's rounding); the scores, p, dS, D =
+// rowsum(g * o) from the bf16 g and o, and every sum stay f32.  Tiles and
+// the staged dS^T hold bf16 (rows padded by 16 bytes), so a block needs
+// less shared memory than in f32; the padded width starts at 16 (one mma
+// depth), and a warp's query share of a tile is a multiple of 16 (query
+// rows per tile: max(f32's, 16 * QS)), so that two of its 8-query C tiles
+// form one A operand.  The fragment reads that do not follow a row (B
+// operands over queries or keys) pack two 16-bit loads.
 //
 // What bounds it on this card: five K*K*d products (s, dp, dv, dk, dq) of
 // 2 K*K*d FLOPs each against 8 K*d values moved.  On the tensor cores at
@@ -73,6 +86,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "tf32_tiles.cuh"
 
@@ -91,15 +105,15 @@ struct Strides {
 };
 
 struct Args {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* o;
-  const float* g;
+  const void* q;      // f32 or bf16, as o, g, dq, dk, dv
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* g;
   const float* lse;   // [R * H * K] each query row's log-sum-exp (K3's)
-  float* dq;
-  float* dk;
-  float* dv;
+  void* dq;
+  void* dk;
+  void* dv;
   float* part;        // null (cluster path) or [ntk][R * H][K][d] dQ partials
   int* ticket;        // [R * H * slices] arrivals, zero before the launch
   Strides sq, sk, sv, so, sg, sdq, sdk, sdv;
@@ -123,47 +137,58 @@ struct Tiling {
 };
 constexpr Tiling kTilings[] = {{64, 1}, {64, 2}, {32, 2}, {32, 4}, {16, 4}};
 constexpr int kNumTilings = sizeof(kTilings) / sizeof(kTilings[0]);
-__host__ __device__ constexpr int query_rows(int dp) { return dp == kWide ? 32 : 64; }
 constexpr int kStages = 2;
 __host__ __device__ constexpr int max_of(int x, int y) { return x > y ? x : y; }
-// floats of the ring, which the QS partials of dK and dV reuse at the end
-__host__ __device__ constexpr int ring_floats(int dp, int bn, int qs) {
-  return max_of(kStages * 2 * query_rows(dp) * (dp + 4), 2 * qs * bn * (dp + 4));
+// query rows per streamed tile: 64, 32 at d > 64 (registers); in bf16 at
+// least 16 per warp that shares a tile
+__host__ __device__ constexpr int query_rows(int dp, int qs, int esize) {
+  return max_of(dp == kWide ? 32 : 64, esize == 2 ? 16 * qs : 0);
+}
+// elements of a shared-memory row of width w: padded by 16 bytes
+__host__ __device__ constexpr int padded_row(int w, int esize) { return w + 16 / esize; }
+// bytes of the ring, which the f32 QS partials of dK and dV reuse at the end
+__host__ __device__ constexpr int ring_bytes(int dp, int bn, int qs, int esize) {
+  return max_of(kStages * 2 * query_rows(dp, qs, esize) * padded_row(dp, esize) * esize,
+                2 * qs * bn * (dp + 4) * 4);
 }
 
-int padded_width(int d) {
-  int w = 8;
+int padded_width(int d, int esize) {
+  int w = esize == 2 ? 16 : 8;
   while (w < kWide && d > w) w *= 2;
   return w;
 }
 
 // Dynamic shared memory of a block: its K and V rows, the ring of Q and G
-// tiles, dS^T, the log-sum-exp and D of the query rows (all rows on the
-// cluster path, one tile's otherwise) and, on the cluster path, the dQ
-// partial of every query row.
-long long smem_bytes(int dp, int bn, int qs, int K, bool cluster) {
-  const long long bm = query_rows(dp), ld = dp + 4;
+// tiles, dS^T (in the element type), the log-sum-exp and D of the query
+// rows (all rows on the cluster path, one tile's otherwise) and, on the
+// cluster path, the f32 dQ partial of every query row.
+long long smem_bytes(int dp, int bn, int qs, int K, bool cluster, int esize) {
+  const long long bm = query_rows(dp, qs, esize), ld = padded_row(dp, esize);
   const long long kp = (K + bm - 1) / bm * bm;
   const long long rows = cluster ? kp : bm;
-  return 4 * (2 * bn * ld + ring_floats(dp, bn, qs) + bn * (bm + 4) + 2 * rows +
-              (cluster ? kp * (dp + 4) : 0));
+  return 2 * bn * ld * esize + ring_bytes(dp, bn, qs, esize) +
+         bn * padded_row((int)bm, esize) * esize + 4 * 2 * rows +
+         (cluster ? 4 * kp * (dp + 4) : 0);
 }
 
-bool cluster_path(int dp, int bn, int qs, int K, int d) {
+bool cluster_path(int dp, int bn, int qs, int K, int d, int esize) {
   return d <= kWide && (K + bn - 1) / bn <= kMaxCluster &&
-         smem_bytes(dp, bn, qs, K, true) <= kMaxSmem;
+         smem_bytes(dp, bn, qs, K, true, esize) <= kMaxSmem;
 }
 
-template <int DP, int BN, int QS, bool WIDE>
+template <typename T, int DP, int BN, int QS, bool WIDE>
 __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args a) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int ES = (int)sizeof(T);
   constexpr int W = BN / 16 * QS;       // warps
   constexpr int NTHR = 32 * W;
-  constexpr int BM = query_rows(DP);    // query rows per streamed tile
+  constexpr int BM = query_rows(DP, QS, ES);   // query rows per streamed tile
   constexpr int BMW = BM / QS;          // of them, each warp's
   constexpr int NJ = BMW / 8;           // 8-query column tiles of a warp's S^T
   constexpr int NT = DP / 8;            // 8-wide column tiles of dK and dV
-  constexpr int LD = DP + 4;            // rows of K, V, Q, G and the dQ partial
-  constexpr int LDS = BM + 4;           // rows of dS^T
+  constexpr int LD = padded_row(DP, ES);   // rows of K, V, Q and G (elements)
+  constexpr int LDP = DP + 4;           // rows of the f32 dQ partial and dK/dV partials
+  constexpr int LDS = padded_row(BM, ES);  // rows of dS^T (elements)
   constexpr int RG = BM / 16;           // dQ: 16-row groups of a tile ...
   constexpr int CP = W / RG < NT ? W / RG : NT;   // ... each shared by CP warps ...
   constexpr int NTQ = NT / CP;          // ... taking NTQ column tiles each
@@ -174,18 +199,20 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
   constexpr int NC = NT < 4 ? NT : 4;   // column tiles whose G and Q one step splits
   static_assert(NJ >= 1 && BMW * QS == BM && CP >= 1 && NTQ * CP == NT && RG * CP <= W,
                 "tiling");
+  static_assert(F32 || (NJ % 2 == 0 && DP % 16 == 0), "bf16: 16-query and 16-dim steps");
   static_assert(!WIDE || DP == kWide, "d > 128 runs in 128-wide slices");
 
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const bool cl = a.part == nullptr;   // dQ partials meet in the cluster
   const int ntq = a.ntq, Kp = ntq * BM;
-  float* ks = smem;                          // [BN][LD] the block's keys
-  float* vs = ks + BN * LD;                  // [BN][LD] their values (not when WIDE)
-  float* stg = vs + BN * LD;                 // [kStages][Q, G][BM][LD]
-  float* ss = stg + ring_floats(DP, BN, QS);   // [BN][LDS] dS^T of the tile
-  float* lse2 = ss + BN * LDS;               // [Kp or BM] lse * log2 e, +inf past K
+  T* ks = reinterpret_cast<T*>(smem_raw);   // [BN][LD] the block's keys
+  T* vs = ks + BN * LD;                      // [BN][LD] their values (not when WIDE)
+  T* stg = vs + BN * LD;                     // [kStages][Q, G][BM][LD]
+  T* ss = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(stg) +
+                               ring_bytes(DP, BN, QS, ES));   // [BN][LDS] dS^T of the tile
+  float* lse2 = reinterpret_cast<float*>(ss + BN * LDS);   // [Kp or BM] lse * log2 e
   float* dd = lse2 + (cl ? Kp : BM);         // [Kp or BM] D
-  float* dqp = dd + (cl ? Kp : BM);          // [Kp][LD] dQ partial (cluster path)
+  float* dqp = dd + (cl ? Kp : BM);          // [Kp][LDP] dQ partial (cluster path)
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -197,26 +224,26 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
   const int dw = WIDE ? min(DP, d - c0) : d;   // columns of the staged tiles and outputs
   const int kr = warp / QS * 16;             // the warp's keys in the block
   const int q0w = warp % QS * BMW;           // its queries in each tile
-  const float* qp = a.q + r * a.sq.r + h * a.sq.h;
-  const float* kp = a.k + r * a.sk.r + h * a.sk.h;
-  const float* vp = a.v + r * a.sv.r + h * a.sv.h;
-  const float* gp = a.g + r * a.sg.r + h * a.sg.h;
-  const float* op = a.o + r * a.so.r + h * a.so.h;
+  const T* qp = static_cast<const T*>(a.q) + r * a.sq.r + h * a.sq.h;
+  const T* kp = static_cast<const T*>(a.k) + r * a.sk.r + h * a.sk.h;
+  const T* vp = static_cast<const T*>(a.v) + r * a.sv.r + h * a.sv.h;
+  const T* gp = static_cast<const T*>(a.g) + r * a.sg.r + h * a.sg.h;
+  const T* op = static_cast<const T*>(a.o) + r * a.so.r + h * a.so.h;
   const bool vec = a.vec != 0;
 
   // the block's keys (the slice at c0 when WIDE) and values, then the first
   // query tiles, each one commit group
-  stage_tile<float, BN, DP, LD>(ks, kp + (long long)j0 * a.sk.k + c0, a.sk.k, K - j0, dw, vec);
+  stage_tile<T, BN, DP, LD>(ks, kp + (long long)j0 * a.sk.k + c0, a.sk.k, K - j0, dw, vec);
   if constexpr (!WIDE)
-    stage_tile<float, BN, DP, LD>(vs, vp + (long long)j0 * a.sv.k, a.sv.k, K - j0, d, vec);
+    stage_tile<T, BN, DP, LD>(vs, vp + (long long)j0 * a.sv.k, a.sv.k, K - j0, d, vec);
   cp_async_commit();
   auto stage = [&](int it) {
     if (it < ntq) {
-      float* dst = stg + (it % kStages) * 2 * BM * LD;
+      T* dst = stg + (it % kStages) * 2 * BM * LD;
       const long long i0 = (long long)it * BM;
-      stage_tile<float, BM, DP, LD>(dst, qp + i0 * a.sq.k + c0, a.sq.k, K - (int)i0, dw, vec);
-      stage_tile<float, BM, DP, LD>(dst + BM * LD, gp + i0 * a.sg.k + c0, a.sg.k,
-                                    K - (int)i0, dw, vec);
+      stage_tile<T, BM, DP, LD>(dst, qp + i0 * a.sq.k + c0, a.sq.k, K - (int)i0, dw, vec);
+      stage_tile<T, BM, DP, LD>(dst + BM * LD, gp + i0 * a.sg.k + c0, a.sg.k,
+                                K - (int)i0, dw, vec);
     }
     cp_async_commit();
   };
@@ -229,7 +256,7 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
   // flight at once; else one thread a row.
   const float* lse_in = a.lse + (long long)rh * K;
   auto rows_lse_d = [&](int lo, int hi, int base) {
-    if (!WIDE && a.dvec) {
+    if constexpr (!WIDE && F32) if (a.dvec) {
       constexpr int CPR = DP / 4, RPP = NTHR / CPR, U = 8;
       const int sub = threadIdx.x % CPR, c = sub * 4;
       for (int b0 = lo; b0 < hi; b0 += U * RPP) {   // uniform trip count: the lanes shuffle
@@ -264,10 +291,10 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
     for (int i = lo + (int)threadIdx.x; i < hi; i += NTHR) {
       float s = 0.f, l = INFINITY;
       if (i < K) {
-        const float* gr = gp + (long long)i * a.sg.k;
-        const float* orow = op + (long long)i * a.so.k;
+        const T* gr = gp + (long long)i * a.sg.k;
+        const T* orow = op + (long long)i * a.so.k;
 #pragma unroll 4
-        for (int c = 0; c < d; ++c) s = fmaf(gr[c], orow[c], s);
+        for (int c = 0; c < d; ++c) s = fmaf(to_f32(gr[c]), to_f32(orow[c]), s);
         l = lse_in[i] * kLog2e;
       }
       lse2[i - base] = l;
@@ -288,8 +315,16 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
     }
   }
 
-  auto ldg = [&](const float* base, long long ld, int row, int col) -> float {
-    return row < K && col < d ? base[row * ld + col] : 0.f;
+  auto ldg = [&](const T* base, long long ld, int row, int col) -> float {
+    return row < K && col < d ? to_f32(base[row * ld + col]) : 0.f;
+  };
+  // bf16: elements (row, col) and (row, col + 1) as one operand register,
+  // from device memory (WIDE) or from a staged tile (row stride LD)
+  auto ldg2 = [&](const T* base, long long ld, int row, int col) -> uint32_t {
+    return pack(ldg(base, ld, row, col), ldg(base, ld, row, col + 1));
+  };
+  auto lds2 = [](const T* tile, int row, int col) -> uint32_t {
+    return *reinterpret_cast<const uint32_t*>(tile + row * LD + col);
   };
   const bool key0 = j0 + kr + g < K, key1 = j0 + kr + g + 8 < K;   // the lane's key rows
   float dka[DA][NT][4], dva[DA][NT][4];
@@ -307,8 +342,8 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
     const int i0 = it * BM;
     if (!cl) rows_lse_d(i0, i0 + BM, i0);
     __syncthreads();
-    const float* qt = stg + (it % kStages) * 2 * BM * LD;
-    const float* gt = qt + BM * LD;
+    const T* qt = stg + (it % kStages) * 2 * BM * LD;
+    const T* gt = qt + BM * LD;
     const float* lt = lse2 + (cl ? i0 : 0);
     const float* dt = dd + (cl ? i0 : 0);
 
@@ -320,6 +355,51 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i) sa[c][j][i] = pa[c][j][i] = 0.f;
+    if constexpr (!F32) {   // one bf16 mma per 16 dims
+      const int nk = WIDE ? (d + 15) / 16 : DP / 16;
+#pragma unroll
+      for (int kk = 0; kk < nk; ++kk) {
+        const int c = kk * 16 + 2 * t, ra = kr + g;
+        uint32_t kf[4], vf[4];
+        if constexpr (WIDE) {
+          kf[0] = ldg2(kp, a.sk.k, j0 + ra, c);
+          kf[1] = ldg2(kp, a.sk.k, j0 + ra + 8, c);
+          kf[2] = ldg2(kp, a.sk.k, j0 + ra, c + 8);
+          kf[3] = ldg2(kp, a.sk.k, j0 + ra + 8, c + 8);
+          vf[0] = ldg2(vp, a.sv.k, j0 + ra, c);
+          vf[1] = ldg2(vp, a.sv.k, j0 + ra + 8, c);
+          vf[2] = ldg2(vp, a.sv.k, j0 + ra, c + 8);
+          vf[3] = ldg2(vp, a.sv.k, j0 + ra + 8, c + 8);
+        } else {
+          kf[0] = lds2(ks, ra, c);
+          kf[1] = lds2(ks, ra + 8, c);
+          kf[2] = lds2(ks, ra, c + 8);
+          kf[3] = lds2(ks, ra + 8, c + 8);
+          vf[0] = lds2(vs, ra, c);
+          vf[1] = lds2(vs, ra + 8, c);
+          vf[2] = lds2(vs, ra, c + 8);
+          vf[3] = lds2(vs, ra + 8, c + 8);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {   // B = Q^T, G^T: [dims][query j*8 + g]
+          const int row = q0w + j * 8 + g;
+          uint32_t q0, q1, g0, g1;
+          if constexpr (WIDE) {
+            q0 = ldg2(qp, a.sq.k, i0 + row, c);
+            q1 = ldg2(qp, a.sq.k, i0 + row, c + 8);
+            g0 = ldg2(gp, a.sg.k, i0 + row, c);
+            g1 = ldg2(gp, a.sg.k, i0 + row, c + 8);
+          } else {
+            q0 = lds2(qt, row, c);
+            q1 = lds2(qt, row, c + 8);
+            g0 = lds2(gt, row, c);
+            g1 = lds2(gt, row, c + 8);
+          }
+          mma_bf16(sa[kk % SC][j], kf, q0, q1);
+          mma_bf16(pa[kk % SC][j], vf, g0, g1);
+        }
+      }
+    } else {
     const int nk = WIDE ? (d + 7) / 8 : DP / 8;
 #pragma unroll
     for (int kk = 0; kk < nk; ++kk) {
@@ -388,6 +468,7 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
         }
       }
     }
+    }
 
     // ---- P^T and dS^T: lane holds keys kr + g, + 8 of queries 2t, 2t + 1 --
     float p[NJ][4], ds[NJ][4];
@@ -424,6 +505,28 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
     }
 
     // ---- dV += P^T.G and dK += dS^T.Q over the warp's queries -------------
+    if constexpr (!F32) {   // 16 queries a step: the C tiles j = 2m, 2m + 1 as A
+#pragma unroll
+      for (int m = 0; m < NJ / 2; ++m) {
+        const uint32_t pf[4] = {pack(p[2 * m][0], p[2 * m][1]), pack(p[2 * m][2], p[2 * m][3]),
+                                pack(p[2 * m + 1][0], p[2 * m + 1][1]),
+                                pack(p[2 * m + 1][2], p[2 * m + 1][3])};
+        const uint32_t sf[4] = {pack(ds[2 * m][0], ds[2 * m][1]),
+                                pack(ds[2 * m][2], ds[2 * m][3]),
+                                pack(ds[2 * m + 1][0], ds[2 * m + 1][1]),
+                                pack(ds[2 * m + 1][2], ds[2 * m + 1][3])};
+        // B = G, Q [queries 2t, 2t + 1 (+ 8)][dim n*8 + g]
+        const T* gr = gt + (q0w + m * 16 + 2 * t) * LD + g;
+        const T* qr = qt + (q0w + m * 16 + 2 * t) * LD + g;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const T* gc = gr + n * 8;
+          const T* qc = qr + n * 8;
+          mma_bf16(dva[m % DA][n], pf, pack(gc[0], gc[LD]), pack(gc[8 * LD], gc[9 * LD]));
+          mma_bf16(dka[m % DA][n], sf, pack(qc[0], qc[LD]), pack(qc[8 * LD], qc[9 * LD]));
+        }
+      }
+    } else {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       // A column t is query 2t, column t + 4 is query 2t + 1 (relabelled)
@@ -460,13 +563,19 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
         }
       }
     }
+    }
 
     // ---- dS^T into shared memory, then dQ = dS.K over the block's keys ----
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      float* sp = ss + (kr + g) * LDS + q0w + j * 8 + 2 * t;
-      *reinterpret_cast<float2*>(sp) = make_float2(ds[j][0], ds[j][1]);
-      *reinterpret_cast<float2*>(sp + 8 * LDS) = make_float2(ds[j][2], ds[j][3]);
+      T* sp = ss + (kr + g) * LDS + q0w + j * 8 + 2 * t;
+      if constexpr (F32) {
+        *reinterpret_cast<float2*>(sp) = make_float2(ds[j][0], ds[j][1]);
+        *reinterpret_cast<float2*>(sp + 8 * LDS) = make_float2(ds[j][2], ds[j][3]);
+      } else {   // rounded to bf16 as the operand of dQ = dS.K
+        *reinterpret_cast<uint32_t*>(sp) = pack(ds[j][0], ds[j][1]);
+        *reinterpret_cast<uint32_t*>(sp + 8 * LDS) = pack(ds[j][2], ds[j][3]);
+      }
     }
     __syncthreads();   // dS^T is whole; the ring slot of tile it is read no more
     if (warp < RG * CP) {
@@ -479,6 +588,23 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
         for (int n = 0; n < NTQ; ++n)
 #pragma unroll
           for (int i = 0; i < 4; ++i) qa[c][n][i] = 0.f;
+      if constexpr (!F32) {   // 16 keys a step
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+          // A = dS[query rg*16 + g (+ 8)][keys kk*16 + 2t, 2t + 1 (+ 8)] from dS^T
+          const T* sr = ss + (kk * 16 + 2 * t) * LDS + rg * 16 + g;
+          const uint32_t af[4] = {pack(sr[0], sr[LDS]), pack(sr[8], sr[LDS + 8]),
+                                  pack(sr[8 * LDS], sr[9 * LDS]),
+                                  pack(sr[8 * LDS + 8], sr[9 * LDS + 8])};
+          // B = K[keys kk*16 + 2t, 2t + 1 (+ 8)][dim n*8 + g]
+          const T* kb = ks + (kk * 16 + 2 * t) * LD + cpart * NTQ * 8 + g;
+#pragma unroll
+          for (int n = 0; n < NTQ; ++n) {
+            const T* kc = kb + n * 8;
+            mma_bf16(qa[kk % QA][n], af, pack(kc[0], kc[LD]), pack(kc[8 * LD], kc[9 * LD]));
+          }
+        }
+      } else {
 #pragma unroll
       for (int kk = 0; kk < BN / 8; ++kk) {
         // A = dS[query rg*16 + g, + 8][keys kk*8 + 2t, 2t + 1] (relabelled)
@@ -506,6 +632,7 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
           }
         }
       }
+      }
       const int ra = i0 + rg * 16 + g, rb = ra + 8;
 #pragma unroll
       for (int n = 0; n < NTQ; ++n) {
@@ -518,8 +645,8 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
         }
         const int col = (cpart * NTQ + n) * 8 + 2 * t;
         if (cl) {
-          *reinterpret_cast<float2*>(dqp + ra * LD + col) = make_float2(x[0], x[1]);
-          *reinterpret_cast<float2*>(dqp + rb * LD + col) = make_float2(x[2], x[3]);
+          *reinterpret_cast<float2*>(dqp + ra * LDP + col) = make_float2(x[0], x[1]);
+          *reinterpret_cast<float2*>(dqp + rb * LDP + col) = make_float2(x[2], x[3]);
         } else {
           float* pr = a.part + ((long long)kt * a.rh + rh) * K * d + c0 + col;
           if (ra < K && col < dw) pr[(long long)ra * d] = x[0];
@@ -535,11 +662,11 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
   // ---- dK and dV: the QS partials of each key meet in shared memory (the
   // ring's space, read no more since the last mid-tile barrier) and are
   // summed in a fixed order, whole rows at a time ---------------------------
-  float* epk = stg;                  // [QS][BN][LD]
-  float* epv = stg + QS * BN * LD;   // [QS][BN][LD]
+  float* epk = reinterpret_cast<float*>(stg);   // [QS][BN][LDP]
+  float* epv = epk + QS * BN * LDP;              // [QS][BN][LDP]
   {
-    float* ek = epk + (warp % QS * BN + kr + g) * LD + 2 * t;
-    float* ev = epv + (warp % QS * BN + kr + g) * LD + 2 * t;
+    float* ek = epk + (warp % QS * BN + kr + g) * LDP + 2 * t;
+    float* ev = epv + (warp % QS * BN + kr + g) * LDP + 2 * t;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       float xk[4], xv[4];
@@ -554,25 +681,25 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
         }
       }
       *reinterpret_cast<float2*>(ek + n * 8) = make_float2(xk[0], xk[1]);
-      *reinterpret_cast<float2*>(ek + n * 8 + 8 * LD) = make_float2(xk[2], xk[3]);
+      *reinterpret_cast<float2*>(ek + n * 8 + 8 * LDP) = make_float2(xk[2], xk[3]);
       *reinterpret_cast<float2*>(ev + n * 8) = make_float2(xv[0], xv[1]);
-      *reinterpret_cast<float2*>(ev + n * 8 + 8 * LD) = make_float2(xv[2], xv[3]);
+      *reinterpret_cast<float2*>(ev + n * 8 + 8 * LDP) = make_float2(xv[2], xv[3]);
     }
   }
   __syncthreads();
   {
-    float* dkp = a.dk + r * a.sdk.r + h * a.sdk.h + (long long)j0 * a.sdk.k + c0;
-    float* dvp = a.dv + r * a.sdv.r + h * a.sdv.h + (long long)j0 * a.sdv.k + c0;
+    T* dkp = static_cast<T*>(a.dk) + r * a.sdk.r + h * a.sdk.h + (long long)j0 * a.sdk.k + c0;
+    T* dvp = static_cast<T*>(a.dv) + r * a.sdv.r + h * a.sdv.h + (long long)j0 * a.sdv.k + c0;
     const int rows = min(BN, K - j0);
-    if (a.ovec && dw % 4 == 0) {   // 16-byte stores
+    if (F32 && a.ovec && dw % 4 == 0) {   // 16-byte stores
       const int q4 = dw / 4;
       for (int i = threadIdx.x; i < rows * q4; i += NTHR) {
         const int row = i / q4, c = (i % q4) * 4;
         float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
 #pragma unroll
         for (int w = 0; w < QS; ++w) {
-          const float4 xk = *reinterpret_cast<const float4*>(epk + (w * BN + row) * LD + c);
-          const float4 xv = *reinterpret_cast<const float4*>(epv + (w * BN + row) * LD + c);
+          const float4 xk = *reinterpret_cast<const float4*>(epk + (w * BN + row) * LDP + c);
+          const float4 xv = *reinterpret_cast<const float4*>(epv + (w * BN + row) * LDP + c);
           sk.x += xk.x; sk.y += xk.y; sk.z += xk.z; sk.w += xk.w;
           sv.x += xv.x; sv.y += xv.y; sv.z += xv.z; sv.w += xv.w;
         }
@@ -586,8 +713,8 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
         float sk = 0.f, sv = 0.f;
 #pragma unroll
         for (int w = 0; w < QS; ++w) {
-          sk += epk[(w * BN + row) * LD + c];
-          sv += epv[(w * BN + row) * LD + c];
+          sk += epk[(w * BN + row) * LDP + c];
+          sv += epv[(w * BN + row) * LDP + c];
         }
         dkp[row * a.sdk.k + c] = sk * a.scale;
         dvp[row * a.sdv.k + c] = sv;
@@ -596,12 +723,12 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
   }
 
   // ---- dQ: the key tiles' partials summed in rank (key-tile) order --------
-  float* dqg = a.dq + r * a.sdq.r + h * a.sdq.h + c0;
+  T* dqg = static_cast<T*>(a.dq) + r * a.sdq.r + h * a.sdq.h + c0;
   if (cl) {
     cluster.sync();   // every rank's partial is whole
     const int per = (K + a.ntk - 1) / a.ntk, lo = kt * per, hi = min(K, lo + per);
     constexpr int Q4 = DP / 4;
-    const bool v4 = a.ovec && d % 4 == 0;
+    const bool v4 = F32 && a.ovec && d % 4 == 0;
     for (int i = threadIdx.x; i < (hi - lo) * Q4; i += NTHR) {
       const int row = lo + i / Q4, c = (i % Q4) * 4;
       if (c >= d) continue;
@@ -610,7 +737,7 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
       for (int rk = 0; rk < kMaxCluster; ++rk)
         if (rk < a.ntk)
           x[rk] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(dqp, rk) +
-                                                   row * LD + c);
+                                                   row * LDP + c);
       float4 s = x[0];
 #pragma unroll
       for (int rk = 1; rk < kMaxCluster; ++rk)
@@ -618,7 +745,7 @@ __global__ void __launch_bounds__(BN / 16 * QS * 32) attn_bwd_kernel(const Args 
           s.x += x[rk].x; s.y += x[rk].y; s.z += x[rk].z; s.w += x[rk].w;
         }
       const float y[4] = {s.x * a.scale, s.y * a.scale, s.z * a.scale, s.w * a.scale};
-      float* dst = dqg + (long long)row * a.sdq.k + c;
+      T* dst = dqg + (long long)row * a.sdq.k + c;
       if (v4) {
         *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
       } else {
@@ -665,10 +792,10 @@ cudaError_t opt_in_smem(Kern kernel, std::atomic<int>* granted, int bytes) {
   return e;
 }
 
-template <int DP, int BN, int QS, bool WIDE>
+template <typename T, int DP, int BN, int QS, bool WIDE>
 cudaError_t launch(const Args& a, int slices, bool cl, int smem, cudaStream_t stream) {
   static std::atomic<int> granted[kMaxDevices];
-  auto kernel = attn_bwd_kernel<DP, BN, QS, WIDE>;
+  auto kernel = attn_bwd_kernel<T, DP, BN, QS, WIDE>;
   cudaError_t e = opt_in_smem(kernel, granted, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
@@ -689,13 +816,31 @@ cudaError_t launch(const Args& a, int slices, bool cl, int smem, cudaStream_t st
 }
 
 // Tiling `id` of kTilings, resolved at compile time.
-template <int DP, bool WIDE, int I = 0>
+template <typename T, int DP, bool WIDE, int I = 0>
 cudaError_t by_tiling(const Args& a, int id, int slices, bool cl, int smem, cudaStream_t s) {
   if constexpr (I == kNumTilings) {
     return cudaErrorInvalidValue;
   } else {
-    if (id == I) return launch<DP, kTilings[I].bn, kTilings[I].qs, WIDE>(a, slices, cl, smem, s);
-    return by_tiling<DP, WIDE, I + 1>(a, id, slices, cl, smem, s);
+    if (id == I)
+      return launch<T, DP, kTilings[I].bn, kTilings[I].qs, WIDE>(a, slices, cl, smem, s);
+    return by_tiling<T, DP, WIDE, I + 1>(a, id, slices, cl, smem, s);
+  }
+}
+
+// The kernel of element type T for padded width dp (128 and WIDE past it).
+template <typename T>
+cudaError_t by_width(const Args& a, int dp, int id, int slices, bool cl, int smem,
+                     cudaStream_t st) {
+  if (a.d > kWide) return by_tiling<T, kWide, true>(a, id, slices, false, smem, st);
+  switch (dp) {
+    case 8:
+      if constexpr (std::is_same<T, float>::value)
+        return by_tiling<T, 8, false>(a, id, slices, cl, smem, st);
+      return cudaErrorInvalidValue;   // bf16 pads to 16
+    case 16: return by_tiling<T, 16, false>(a, id, slices, cl, smem, st);
+    case 32: return by_tiling<T, 32, false>(a, id, slices, cl, smem, st);
+    case 64: return by_tiling<T, 64, false>(a, id, slices, cl, smem, st);
+    default: return by_tiling<T, 128, false>(a, id, slices, cl, smem, st);
   }
 }
 
@@ -705,21 +850,22 @@ int tiling_id(long long bn, long long qs) {
   return -1;
 }
 
-bool aligned16(const void* p, const Strides& s) {
-  return (reinterpret_cast<uintptr_t>(p) % 16) == 0 && (s.r * 4) % 16 == 0 &&
-         (s.h * 4) % 16 == 0 && (s.k * 4) % 16 == 0;
+bool aligned16(const void* p, const Strides& s, int esize) {
+  return (reinterpret_cast<uintptr_t>(p) % 16) == 0 && (s.r * esize) % 16 == 0 &&
+         (s.h * esize) % 16 == 0 && (s.k * esize) % 16 == 0;
 }
 
 }  // namespace
 
-// q, k, v, o (the forward output), g (its gradient), dq, dk, dv: f32
-// [r, h, K, d] on the current device, each with its last dim contiguous;
-// lse: f32 [r, h, K] contiguous, each query row's log-sum-exp of the scaled
-// scores (K3 writes it).  p holds, as 64-bit integers, the strides
-// (elements) of dims r, h, K in the order q, k, v, o, g, dq, dk, dv
-// (p[0..23]), then r, h, K, d, and the block's tiling, one of kTilings:
-// bn keys and qs warps per 16 of them (p[24..29]).  part and ticket: null
-// where pcdreg_attention_bwd_plan reports a cluster, else f32 scratch of
+// q, k, v, o (the forward output), g (its gradient), dq, dk, dv: all f32
+// (dtype 0) or all bf16 (dtype 1), [r, h, K, d] on the current device,
+// each with its last dim contiguous; lse: f32 [r, h, K] contiguous, each
+// query row's log-sum-exp of the scaled scores (K3 writes it).  p holds,
+// as 64-bit integers, the strides (elements) of dims r, h, K in the order
+// q, k, v, o, g, dq, dk, dv (p[0..23]), then r, h, K, d, the block's
+// tiling, one of kTilings: bn keys and qs warps per 16 of them
+// (p[24..29]), and the dtype (p[30]).  part and ticket: null where
+// pcdreg_attention_bwd_plan reports a cluster, else f32 scratch of
 // ceil(K / bn) * r * h * K * d values and int32 [r * h * ceil(d / 128)]
 // zeros.  Any K >= 1 and d >= 1.  One launch on `stream`; returns its
 // cudaError_t (0 = ok).
@@ -729,27 +875,30 @@ extern "C" int pcdreg_patch_attention_bwd(const void* q, const void* k, const vo
                                           void* ticket, const long long* p, float scale,
                                           void* stream) {
   const long long r = p[24], h = p[25], K = p[26], d = p[27], bn = p[28], qs = p[29];
-  if (r <= 0 || h <= 0 || K <= 0 || d <= 0 || K > 0x7fffffffLL || d > 0x7fffffffLL)
+  const long long dtype = p[30];
+  if (r <= 0 || h <= 0 || K <= 0 || d <= 0 || K > 0x7fffffffLL || d > 0x7fffffffLL ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const int id = tiling_id(bn, qs);
   if (id < 0) return (int)cudaErrorInvalidValue;
+  const int es = dtype == 0 ? 4 : 2;
   const long long ntk = (K + bn - 1) / bn, slices = d > kWide ? (d + kWide - 1) / kWide : 1;
-  const int dp = d > kWide ? kWide : padded_width((int)d);
+  const int dp = d > kWide ? kWide : padded_width((int)d, es);
   if (r * h * ntk > 0x7fffffffLL || slices > 65535) return (int)cudaErrorInvalidValue;
-  const bool cl = cluster_path(dp, (int)bn, (int)qs, (int)K, (int)d);
+  const bool cl = cluster_path(dp, (int)bn, (int)qs, (int)K, (int)d, es);
   if (!cl && (part == nullptr || ticket == nullptr)) return (int)cudaErrorInvalidValue;
-  const long long smem = smem_bytes(dp, (int)bn, (int)qs, (int)K, cl);
+  const long long smem = smem_bytes(dp, (int)bn, (int)qs, (int)K, cl, es);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   Args a;
-  a.q = (const float*)q;
-  a.k = (const float*)k;
-  a.v = (const float*)v;
-  a.o = (const float*)o;
-  a.g = (const float*)g;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.g = g;
   a.lse = (const float*)lse;
-  a.dq = (float*)dq;
-  a.dk = (float*)dk;
-  a.dv = (float*)dv;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
   a.part = cl ? nullptr : (float*)part;
   a.ticket = (int*)ticket;
   Strides* s[8] = {&a.sq, &a.sk, &a.sv, &a.so, &a.sg, &a.sdq, &a.sdk, &a.sdv};
@@ -759,39 +908,37 @@ extern "C" int pcdreg_patch_attention_bwd(const void* q, const void* k, const vo
   a.d = (int)d;
   a.rh = (int)(r * h);
   a.ntk = (int)ntk;
-  a.ntq = (int)((K + query_rows(dp) - 1) / query_rows(dp));
+  const int bm = query_rows(dp, (int)qs, es);
+  a.ntq = (int)((K + bm - 1) / bm);
   a.scale = scale;
   a.scale_log2 = scale * kLog2e;
-  a.vec = aligned16(q, a.sq) && aligned16(k, a.sk) && aligned16(v, a.sv) && aligned16(g, a.sg);
-  a.ovec = aligned16(dq, a.sdq) && aligned16(dk, a.sdk) && aligned16(dv, a.sdv);
-  a.dvec = aligned16(g, a.sg) && aligned16(o, a.so) && d % 4 == 0;
+  a.vec = aligned16(q, a.sq, es) && aligned16(k, a.sk, es) && aligned16(v, a.sv, es) &&
+          aligned16(g, a.sg, es);
+  a.ovec = aligned16(dq, a.sdq, es) && aligned16(dk, a.sdk, es) && aligned16(dv, a.sdv, es);
+  a.dvec = aligned16(g, a.sg, es) && aligned16(o, a.so, es) && d % 4 == 0;
   const int sl = (int)slices, sm = (int)smem;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (d > kWide) return (int)by_tiling<kWide, true>(a, id, sl, false, sm, st);
-  switch (dp) {
-    case 8: return (int)by_tiling<8, false>(a, id, sl, cl, sm, st);
-    case 16: return (int)by_tiling<16, false>(a, id, sl, cl, sm, st);
-    case 32: return (int)by_tiling<32, false>(a, id, sl, cl, sm, st);
-    case 64: return (int)by_tiling<64, false>(a, id, sl, cl, sm, st);
-    default: return (int)by_tiling<128, false>(a, id, sl, cl, sm, st);
-  }
+  if (dtype == 1) return (int)by_width<__nv_bfloat16>(a, dp, id, sl, cl, sm, st);
+  return (int)by_width<float>(a, dp, id, sl, cl, sm, st);
 }
 
-// The tiling of K3b for patch length K, head dim d, bn keys a block and qs
-// warps per 16 keys: padded width dp, query rows per tile bm, ring stages,
-// and the cluster size (the key tiles of a (patch, head); 0 where the dQ
-// partials go through device memory instead).  Returns the dynamic shared
-// memory bytes, or -1 for a tiling the kernel is not built with.
+// The tiling of K3b in dtype (0 f32, 1 bf16) for patch length K, head dim
+// d, bn keys a block and qs warps per 16 keys: padded width dp, query rows
+// per tile bm, ring stages, and the cluster size (the key tiles of a
+// (patch, head); 0 where the dQ partials go through device memory
+// instead).  Returns the dynamic shared memory bytes, or -1 for a tiling
+// or dtype the kernel is not built with.
 // ops/kernels/attention.py::plan_backward mirrors it.
-extern "C" int pcdreg_attention_bwd_plan(int K, int d, int bn, int qs, int* dp, int* bm,
-                                         int* stages, int* cluster) {
-  if (K <= 0 || d <= 0 || tiling_id(bn, qs) < 0) return -1;
-  *dp = d > kWide ? kWide : padded_width(d);
-  *bm = query_rows(*dp);
+extern "C" int pcdreg_attention_bwd_plan(int K, int d, int bn, int qs, int dtype, int* dp,
+                                         int* bm, int* stages, int* cluster) {
+  if (K <= 0 || d <= 0 || tiling_id(bn, qs) < 0 || (dtype != 0 && dtype != 1)) return -1;
+  const int es = dtype == 0 ? 4 : 2;
+  *dp = d > kWide ? kWide : padded_width(d, es);
+  *bm = query_rows(*dp, qs, es);
   *stages = kStages;
-  const bool cl = cluster_path(*dp, bn, qs, K, d);
+  const bool cl = cluster_path(*dp, bn, qs, K, d, es);
   *cluster = cl ? (K + bn - 1) / bn : 0;
-  const long long smem = smem_bytes(*dp, bn, qs, K, cl);
+  const long long smem = smem_bytes(*dp, bn, qs, K, cl, es);
   return smem > 0x7fffffff ? -1 : (int)smem;
 }
 

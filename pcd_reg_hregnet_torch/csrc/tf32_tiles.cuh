@@ -1,6 +1,7 @@
 // Pieces shared by the patch attention kernels (attention.cu, K3, and
-// attention_bwd.cu, K3b): 3xTF32 products on mma.sync.m16n8k8 and tiles
-// staged into shared memory with cp.async.
+// attention_bwd.cu, K3b): 3xTF32 products on mma.sync.m16n8k8, bf16
+// products on mma.sync.m16n8k16, and tiles staged into shared memory with
+// cp.async.
 //
 // Fragments of mma.sync.m16n8k8 (row.col), lane = 4 g + t:
 //   A (16 x 8):  a0 = A[g][t], a1 = A[g + 8][t], a2 = A[g][t + 4], a3 = A[g + 8][t + 4]
@@ -44,6 +45,30 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// mma.sync.m16n8k16 in bf16 (row.col), f32 accumulate; lane = 4 g + t:
+//   A (16 x 16): a0 = A[g][2t, 2t+1], a1 = A[g + 8][2t, 2t+1],
+//                a2 = A[g][2t+8, 2t+9], a3 = A[g + 8][2t+8, 2t+9]
+//   B (16 x 8):  b0 = B[2t, 2t+1][g], b1 = B[2t+8, 2t+9][g]
+//   C (16 x 8):  as m16n8k8's, so the C fragments of two adjacent 8-column
+//   tiles are the A operand of a product over those 16 columns, in order.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two bf16 values, the first in the low half (the lower column or key).
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {

@@ -28,8 +28,11 @@ ICP_METHODS = (None, 'point_to_point', 'point_to_plane')
 def load_model(cfg: Config, weights: str | Path,
                device: str | torch.device = 'cuda') -> torch.nn.Module:
     """The checkpoint at `weights` (an exported `.npz` or a train checkpoint
-    directory) as a model on `device`; it must record `cfg.model`."""
-    model = zoo.build(cfg.model.name, device=device, weights=Path(weights))
+    directory) as a model on `device`, in `cfg.model.compute_dtype` (an
+    f32-trained checkpoint serves in bf16 so, as the JAX CLI's `eval
+    --compute-dtype` runs it); it must record `cfg.model` otherwise."""
+    model = zoo.build(cfg.model.name, device=device, weights=Path(weights),
+                      compute_dtype=cfg.model.compute_dtype)
     if model.cfg != cfg.model:
         raise ValueError(f'{weights} records another model configuration than '
                          f'cfg.model:\n{model.cfg}\n{cfg.model}')

@@ -2,19 +2,23 @@
 package's `eval` sub-command).
 
     python -m pcd_reg_hregnet_torch.evaluate --weights port_assets/r5_v11_knn_best_rre.npz \\
-        --split test [--icp point_to_plane] [--results out.json] [--device cpu]
+        --split test [--icp point_to_plane] [--results out.json] [--device cpu] \\
+        [--compute-dtype bfloat16]
 
 `--weights` takes any exported checkpoint (default the flagship, reg_v11;
 `port_assets/r4_v6_50_best_rre.npz` is reg_v6, model_v2;
 `port_assets/r4_v11_warm_best_rre.npz` is reg_v11 warm-started from the
 feats pretrain) or a train checkpoint directory the port wrote
 (`runs/torch/ckpt/best_rre`).  The
-configuration is the checkpoint's own (`meta.json`); runs on the card
+configuration is the checkpoint's own (`meta.json`), with
+`--compute-dtype` overriding the one it records (`bfloat16` serves an
+f32-trained checkpoint in the JAX package's bf16 policy); runs on the card
 unless `--device cpu`.  Prints the summary of the last layer.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -33,9 +37,16 @@ def main(argv=None) -> int:
     ap.add_argument('--icp-iters', type=int, default=30)
     ap.add_argument('--results', default=None, help='write the results JSON here')
     ap.add_argument('--device', default='cuda')
+    ap.add_argument('--compute-dtype', default=None, choices=('float32', 'bfloat16'),
+                    help='activation dtype of the compute path (for this model bfloat16 '
+                         'is mainly an activation-memory knob: the hot spots are gathers '
+                         'and sampling, not matmul throughput)')
     args = ap.parse_args(argv)
 
     cfg = checkpoint.load_config(args.weights)
+    if args.compute_dtype is not None:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype=args.compute_dtype))
     t = time.perf_counter()
     out = evaluate(cfg, args.weights, split=args.split, icp=args.icp,
                    icp_iters=args.icp_iters, results_path=args.results, device=args.device)

@@ -71,8 +71,9 @@ def matching_loss(src_kp: torch.Tensor, src_sigma: torch.Tensor, src_desc: torch
     inv = (1.0 / (_pair_dist(src_desc, dst_desc) + 1e-3)) / temp          # [B,M,N]
     score_src = torch.softmax(inv, dim=2)                                 # over dst
     score_dst = torch.softmax(inv, dim=1).transpose(1, 2)                 # over src
-    src_corres = torch.bmm(score_src, dst_kp)
-    dst_corres = torch.bmm(score_dst, src_kp)
+    dt = torch.promote_types(score_src.dtype, dst_kp.dtype)   # bf16 scores meet f32 xyz
+    src_corres = torch.bmm(score_src.to(dt), dst_kp.to(dt))
+    dst_corres = torch.bmm(score_dst.to(dt), src_kp.to(dt))
     diff_f = torch.linalg.norm(src_kp - src_corres, dim=-1)
     diff_b = torch.linalg.norm(dst_kp - dst_corres, dim=-1)
     loss_f = (conf_weights(src_sigma, sigma_max) * diff_f).mean()

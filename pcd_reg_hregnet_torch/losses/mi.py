@@ -6,7 +6,8 @@ The discriminators carry the flax names (`local_d`, `global_d`, each with
 `utils.convert.from_flax`.  Local tensors are [B, N, C], global ones [B, D]
 (the per-point weight vectors of length N); each discriminator sees the
 concat of the context and the sample, so its first Dense takes twice the
-configured width.
+configured width.  Their Dense layers promote, as flax's `dtype=None`:
+bf16 features of a bf16 model meet the f32 parameters in f32.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..models.layers import Dense
+
 
 class GlobalInfoNet(nn.Module):
     """Vector discriminator: three (Dense, ReLU) without bias, then a biased
@@ -24,10 +27,10 @@ class GlobalInfoNet(nn.Module):
     def __init__(self, in_channels: int):
         super().__init__()
         c = in_channels
-        self.Dense_0 = nn.Linear(2 * c, c // 2, bias=False)
-        self.Dense_1 = nn.Linear(c // 2, c // 4, bias=False)
-        self.Dense_2 = nn.Linear(c // 4, c // 8, bias=False)
-        self.Dense_3 = nn.Linear(c // 8, 1)
+        self.Dense_0 = Dense(2 * c, c // 2, bias=False)
+        self.Dense_1 = Dense(c // 2, c // 4, bias=False)
+        self.Dense_2 = Dense(c // 4, c // 8, bias=False)
+        self.Dense_3 = Dense(c // 8, 1)
 
     def forward(self, x_global, c_global):
         h = torch.cat([x_global, c_global], dim=-1)
@@ -43,9 +46,9 @@ class LocalInfoNet(nn.Module):
     def __init__(self, in_channels: int):
         super().__init__()
         c = in_channels
-        self.Dense_0 = nn.Linear(2 * c, c // 2, bias=False)
-        self.Dense_1 = nn.Linear(c // 2, c // 4, bias=False)
-        self.Dense_2 = nn.Linear(c // 4, 1, bias=False)
+        self.Dense_0 = Dense(2 * c, c // 2, bias=False)
+        self.Dense_1 = Dense(c // 2, c // 4, bias=False)
+        self.Dense_2 = Dense(c // 4, 1, bias=False)
 
     def forward(self, x_local, c_local):
         h = torch.cat([x_local, c_local], dim=-1)

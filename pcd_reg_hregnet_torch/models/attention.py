@@ -6,11 +6,13 @@ correspondences come from multi-head cross-attention between the two
 clouds' keypoint features, not from kNN matching.  The MI outputs are made
 from the level-2 cross-attended features as FineReg2 makes them
 (projection, batch-rolled negatives).  The attention here is dense batched
-matmuls, as it is in the JAX package (no Pallas kernel there).
+matmuls, as it is in the JAX package (no Pallas kernel there).  A bf16
+compute dtype reaches the detectors alone, as in the JAX module: their
+Dense layers in bf16, the scores and the attended values in f32.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -21,7 +23,7 @@ from ..core.device import fp32_numerics
 from ..geometry import se3
 from ..ops.neighbors import knn_group
 from ..ops.sampling import fps, gather_points, weighted_fps
-from .layers import ConvBNReLU, MLPHead, SVDHead
+from .layers import ConvBNReLU, Dense, MLPHead, SVDHead, compute_dtype
 
 
 class KeypointDetectorSelfAttention(nn.Module):
@@ -30,15 +32,16 @@ class KeypointDetectorSelfAttention(nn.Module):
     sigmas [B, M], attentive_feature [B, M, C_o])."""
 
     def __init__(self, in_channels: int, nsample: int, k: int,
-                 out_channels: Sequence[int], use_fps: bool = True):
+                 out_channels: Sequence[int], use_fps: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.nsample, self.k, self.use_fps = nsample, k, use_fps
         c_o = out_channels[-1]
-        self.ConvBNReLU_0 = ConvBNReLU(in_channels + 4, out_channels)
-        self.Dense_0 = nn.Linear(c_o, c_o // 4, bias=False)     # q
-        self.Dense_1 = nn.Linear(c_o, c_o // 4, bias=False)     # k
-        self.Dense_2 = nn.Linear(c_o, c_o, bias=False)          # v
-        self.MLPHead_0 = MLPHead(c_o, (c_o, c_o), 1)
+        self.ConvBNReLU_0 = ConvBNReLU(in_channels + 4, out_channels, dtype)
+        self.Dense_0 = Dense(c_o, c_o // 4, bias=False, dtype=dtype)     # q
+        self.Dense_1 = Dense(c_o, c_o // 4, bias=False, dtype=dtype)     # k
+        self.Dense_2 = Dense(c_o, c_o, bias=False, dtype=dtype)          # v
+        self.MLPHead_0 = MLPHead(c_o, (c_o, c_o), 1, dtype)
 
     def forward(self, xyz, features=None, weights=None):
         if xyz.shape[1] < self.nsample:
@@ -56,9 +59,12 @@ class KeypointDetectorSelfAttention(nn.Module):
         grouped, knn_xyz = knn_group(sampled_xyz, xyz, features, self.k)
         emb = self.ConvBNReLU_0(grouped)
         q, k, v = self.Dense_0(emb), self.Dense_1(emb), self.Dense_2(emb)
-        scores = torch.einsum('bmkc,bmjc->bmkj', q, k) / (self.k ** 0.5)
+        # f32 products of the compute-dtype values (preferred_element_type=f32)
+        wide = torch.promote_types(q.dtype, torch.float32)
+        scores = torch.einsum('bmkc,bmjc->bmkj', q.to(wide), k.to(wide)) / (self.k ** 0.5)
         attn = torch.softmax(scores, dim=-1)                      # [B,M,k,k]
-        attentive_feature = torch.sum(torch.einsum('bmkj,bmjc->bmkc', attn, v), dim=2)
+        attended = torch.einsum('bmkj,bmjc->bmkc', attn.to(v.dtype).to(wide), v.to(wide))
+        attentive_feature = torch.sum(attended, dim=2)
         # keypoints from the column-summed attention over the neighbours
         keypoints = torch.einsum('bmk,bmkc->bmc', torch.sum(attn, dim=2), knn_xyz)
         sigmas = F.softplus(self.MLPHead_0(attentive_feature))[..., 0] + 0.001
@@ -73,10 +79,10 @@ class MultiHeadCrossAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         C = feature_dim
-        self.Dense_0 = nn.Linear(C, C, bias=False)
-        self.Dense_1 = nn.Linear(C, C, bias=False)
-        self.Dense_2 = nn.Linear(C, C, bias=False)
-        self.Dense_3 = nn.Linear(C, C)
+        self.Dense_0 = Dense(C, C, bias=False)
+        self.Dense_1 = Dense(C, C, bias=False)
+        self.Dense_2 = Dense(C, C, bias=False)
+        self.Dense_3 = Dense(C, C)
 
     def forward(self, feats_left, feats_right):
         B, N, C = feats_left.shape
@@ -107,14 +113,12 @@ class AttentionRegistrationModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.compute_dtype != 'float32':
-            raise NotImplementedError(
-                f'compute_dtype {cfg.compute_dtype!r} is not ported yet (float32 only)')
+        dtype = compute_dtype(cfg.compute_dtype)
         self.cfg = cfg
         in_ch = 0
         for i, lvl in enumerate(cfg.levels):
             self.add_module(f'detector_{i + 1}', KeypointDetectorSelfAttention(
-                in_ch, lvl.nsample, lvl.k, lvl.conv_channels, cfg.use_fps))
+                in_ch, lvl.nsample, lvl.k, lvl.conv_channels, cfg.use_fps, dtype))
             in_ch = lvl.conv_channels[-1]
         dims = [lvl.conv_channels[-1] for lvl in cfg.levels]
         for i in (3, 2, 1):

@@ -8,10 +8,17 @@ The attention core always goes through
 at every patch size.  GELU is the tanh approximation
 (flax's default); LayerNorm eps is 1e-2; the stem BatchNorm has eps 1e-2
 and torch momentum 0.01 (flax 0.99).
+
+With a bf16 `dtype` the Dense layers, the depthwise conv and the attention
+(K3/K3b in bf16) compute in bf16 and each sublayer's output goes back to
+its input's dtype, as in the JAX module; LayerNorm and BatchNorm run in
+f32 in train mode and in bf16 in eval mode, so a block carries f32
+activations in training and bf16 ones in eval.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -20,11 +27,29 @@ from torch import nn
 from ..ops import serialization
 from ..ops.kernels.attention import PatchAttentionFunction
 from ..ops.neighbors import knn, knn_gather
-from .layers import BatchNorm
+from .layers import BatchNorm, Dense, low_precision, result_dtype
+
+
+# jax.nn.gelu's constants, weak-typed, enter a bf16 product as bf16: each
+# is rounded to bf16 once here, so the product with it rounds once, as JAX's
+_GELU_C = {dt: tuple(float(torch.tensor(c, dtype=dt))
+                     for c in (math.sqrt(2 / math.pi), 0.044715))
+           for dt in (torch.bfloat16, torch.float16)}
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate='tanh')
+    """flax's GELU, the tanh approximation; in bf16 op by op as XLA rounds
+    `jax.nn.gelu` (every product and sum rounded, the constants in bf16)."""
+    if not low_precision(x.dtype):
+        return F.gelu(x, approximate='tanh')
+    a, b = _GELU_C[x.dtype]
+    return x * (0.5 * (1.0 + torch.tanh(a * (x + b * (x * x * x)))))
+
+
+def _upcast(x: torch.Tensor) -> bool:
+    """A sublayer's `.astype(x.dtype)` to an f32 input (train mode) takes
+    its last Dense's bias in f32 (`layers.Dense`'s `upcast`)."""
+    return not low_precision(x.dtype)
 
 
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -33,30 +58,55 @@ def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[rows, idx]
 
 
-class SerializedDepthwiseConv(nn.Module):
-    """Depthwise conv along the serialized order, 'SAME' padding."""
+class LayerNorm(nn.LayerNorm):
+    """`nn.LayerNorm` in f32 whose output is f32 in train mode and `dtype`
+    (None: the promotion of the input and f32) in eval mode, as the JAX
+    block's `ln_dtype` sets flax's."""
 
-    def __init__(self, channels: int, kernel: int = 3):
+    def __init__(self, channels: int, eps: float, dtype: Optional[torch.dtype] = None):
+        super().__init__(channels, eps=eps)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        wide = torch.promote_types(x.dtype, self.weight.dtype)   # at least f32
+        out = wide if self.training else result_dtype(self.compute_dtype, x, self.weight)
+        return super().forward(x.to(wide)).to(out)
+
+
+class SerializedDepthwiseConv(nn.Module):
+    """Depthwise conv along the serialized order, 'SAME' padding, in
+    `dtype` (flax `nn.Conv(dtype=)`), its output in the input's dtype."""
+
+    def __init__(self, channels: int, kernel: int = 3, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.Conv_0 = nn.Conv1d(channels, channels, kernel, groups=channels,
                                 padding=kernel // 2)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:    # [B, N, C]
-        return self.Conv_0(x.transpose(1, 2)).transpose(1, 2)
+        conv = self.Conv_0
+        dt = result_dtype(self.compute_dtype, x, conv.weight)
+        y = F.conv1d(x.transpose(1, 2).to(dt), conv.weight.to(dt), conv.bias.to(dt),
+                     padding=conv.padding, groups=conv.groups)
+        return y.transpose(1, 2).to(x.dtype)
 
 
 class KnnCPE(nn.Module):
-    """3D-neighbourhood positional encoding: y_i = mean_j w(p_j - p_i) * x_j."""
+    """3D-neighbourhood positional encoding: y_i = mean_j w(p_j - p_i) * x_j,
+    the weights in `dtype`, the mean in the input's dtype."""
 
-    def __init__(self, channels: int, hidden: int = 16):
+    def __init__(self, channels: int, hidden: int = 16, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.Dense_0 = nn.Linear(4, hidden)
-        self.Dense_1 = nn.Linear(hidden, channels)
+        self.Dense_0 = Dense(4, hidden, dtype=dtype)
+        self.Dense_1 = Dense(hidden, channels, dtype=dtype)
 
     def forward(self, x, nbr_idx, rel):
         h = knn_gather(x, nbr_idx)                              # [B,N,k,C]
         w = self.Dense_1(_gelu(self.Dense_0(rel)))
-        return torch.mean(h * w, dim=2)
+        if not low_precision(h.dtype):
+            return torch.mean(h * w.to(h.dtype), dim=2)
+        # XLA fuses the product into the mean: f32 products, one rounding
+        return torch.mean(h.float() * w.to(h.dtype).float(), dim=2).to(h.dtype)
 
 
 def cpe_neighbors(xyz: torch.Tensor, k: int = 8):
@@ -69,14 +119,16 @@ def cpe_neighbors(xyz: torch.Tensor, k: int = 8):
 
 
 class PatchAttention(nn.Module):
-    """Multi-head attention within fixed-size serialized patches."""
+    """Multi-head attention within fixed-size serialized patches; the
+    projections and the attention (K3, K3b) in `dtype`, the output in the
+    input's dtype."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
-                 qkv_bias: bool = True):
+                 qkv_bias: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.channels, self.num_heads, self.patch_size = channels, num_heads, patch_size
-        self.Dense_0 = nn.Linear(channels, 3 * channels, bias=qkv_bias)
-        self.Dense_1 = nn.Linear(channels, channels)
+        self.Dense_0 = Dense(channels, 3 * channels, bias=qkv_bias, dtype=dtype)
+        self.Dense_1 = Dense(channels, channels, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:    # [B, N, C] serialized
         B, N, C = x.shape
@@ -86,41 +138,43 @@ class PatchAttention(nn.Module):
         R = B * (N // K)
         qkv = self.Dense_0(x).reshape(R, K, 3, H, d)
         out = PatchAttentionFunction.apply(qkv, d ** -0.5)   # [R, K, H, d]
-        return self.Dense_1(out.reshape(B, N, C))
+        return self.Dense_1(out.reshape(B, N, C), _upcast(x)).to(x.dtype)
 
 
 class PTv3Mlp(nn.Module):
-    def __init__(self, channels: int, mlp_ratio: float = 4.0):
+    def __init__(self, channels: int, mlp_ratio: float = 4.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.Dense_0 = nn.Linear(channels, int(channels * mlp_ratio))
-        self.Dense_1 = nn.Linear(int(channels * mlp_ratio), channels)
+        self.Dense_0 = Dense(channels, int(channels * mlp_ratio), dtype=dtype)
+        self.Dense_1 = Dense(int(channels * mlp_ratio), channels, dtype=dtype)
 
     def forward(self, x):
-        return self.Dense_1(_gelu(self.Dense_0(x)))
+        return self.Dense_1(_gelu(self.Dense_0(x)), _upcast(x)).to(x.dtype)
 
 
 class PTv3Block(nn.Module):
     """CPE + pre-norm patch attention + pre-norm MLP."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
-                 mlp_ratio: float = 4.0, cpe: str = 'curve'):
+                 mlp_ratio: float = 4.0, cpe: str = 'curve',
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cpe = cpe
         if cpe == 'knn':
-            self.KnnCPE_0 = KnnCPE(channels)
+            self.KnnCPE_0 = KnnCPE(channels, dtype=dtype)
         elif cpe == 'curve':
-            self.SerializedDepthwiseConv_0 = SerializedDepthwiseConv(channels)
+            self.SerializedDepthwiseConv_0 = SerializedDepthwiseConv(channels, dtype=dtype)
         elif cpe != 'none':
             raise ValueError(f'unknown cpe {cpe!r}')
         norms = 3 if cpe != 'none' else 2
         if cpe != 'none':
-            self.Dense_0 = nn.Linear(channels, channels)
+            self.Dense_0 = Dense(channels, channels, dtype=dtype)
         for j in range(norms):
-            self.add_module(f'LayerNorm_{j}', nn.LayerNorm(channels, eps=1e-2))
+            self.add_module(f'LayerNorm_{j}', LayerNorm(channels, 1e-2, dtype))
         self._attn_norm = f'LayerNorm_{norms - 2}'
         self._mlp_norm = f'LayerNorm_{norms - 1}'
-        self.PatchAttention_0 = PatchAttention(channels, num_heads, patch_size)
-        self.PTv3Mlp_0 = PTv3Mlp(channels, mlp_ratio)
+        self.PatchAttention_0 = PatchAttention(channels, num_heads, patch_size, dtype=dtype)
+        self.PTv3Mlp_0 = PTv3Mlp(channels, mlp_ratio, dtype)
 
     def forward(self, x, nbr_idx=None, rel=None):
         if self.cpe == 'knn':
@@ -130,7 +184,7 @@ class PTv3Block(nn.Module):
         else:
             cpe = None
         if cpe is not None:
-            x = x + self.LayerNorm_0(self.Dense_0(cpe))
+            x = x + self.LayerNorm_0(self.Dense_0(cpe, _upcast(x)).to(x.dtype))
         x = x + self.PatchAttention_0(getattr(self, self._attn_norm)(x))
         x = x + self.PTv3Mlp_0(getattr(self, self._mlp_norm)(x))
         return x
@@ -140,28 +194,29 @@ class PointTransformerEncoder(nn.Module):
     """Encoder-only PTv3 with channel-preserving stage transitions.
 
     Input xyz [B, N, 3] and feat [B, N, in_channels]; output
-    [B, N, channels] in the input's point order.
+    [B, N, channels] in the input's point order (f32 in train mode, `dtype`
+    in eval mode: the stem's BatchNorm is f32 in training).
     """
 
     def __init__(self, in_channels: int, channels: int,
                  depths: Sequence[int] = (2, 2, 2),
                  num_heads: Sequence[int] = (2, 4, 8), patch_size: int = 256,
                  mlp_ratio: float = 4.0, grid_size: float = 0.01,
-                 cpe: str = 'curve'):
+                 cpe: str = 'curve', dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.depths, self.patch_size = tuple(depths), patch_size
         self.grid_size, self.cpe = grid_size, cpe
-        self.SerializedDepthwiseConv_0 = SerializedDepthwiseConv(in_channels, kernel=5)
-        self.Dense_0 = nn.Linear(in_channels, channels)
-        self.BatchNorm_0 = BatchNorm(channels, eps=1e-2, momentum=0.01)
+        self.SerializedDepthwiseConv_0 = SerializedDepthwiseConv(in_channels, 5, dtype)
+        self.Dense_0 = Dense(in_channels, channels, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(channels, eps=1e-2, momentum=0.01, dtype=dtype)
         for s in range(1, len(depths)):
-            self.add_module(f'Dense_{s}', nn.Linear(channels, channels))
-            self.add_module(f'BatchNorm_{s}', BatchNorm(channels))
+            self.add_module(f'Dense_{s}', Dense(channels, channels, dtype=dtype))
+            self.add_module(f'BatchNorm_{s}', BatchNorm(channels, dtype=dtype))
         n = 0
         for s, depth in enumerate(depths):
             for _ in range(depth):
                 self.add_module(f'PTv3Block_{n}', PTv3Block(
-                    channels, num_heads[s], patch_size, mlp_ratio, cpe=cpe))
+                    channels, num_heads[s], patch_size, mlp_ratio, cpe=cpe, dtype=dtype))
                 n += 1
 
     def forward(self, xyz: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
@@ -177,11 +232,11 @@ class PointTransformerEncoder(nn.Module):
             nbr_idx, rel = cpe_neighbors(_take_rows(xyz, order))
 
         x = self.SerializedDepthwiseConv_0(x)
-        x = _gelu(self.BatchNorm_0(self.Dense_0(x)))
+        x = _gelu(self.BatchNorm_0(self.Dense_0(x, upcast=True)))
         n = 0
         for s, depth in enumerate(self.depths):
             if s > 0:
-                x = getattr(self, f'Dense_{s}')(x)
+                x = getattr(self, f'Dense_{s}')(x, upcast=True)
                 x = _gelu(getattr(self, f'BatchNorm_{s}')(x))
             for _ in range(depth):
                 x = getattr(self, f'PTv3Block_{n}')(x, nbr_idx, rel)

@@ -15,7 +15,7 @@ from ..core.config import ModelConfig
 from ..core.device import fp32_numerics
 from ..geometry import se3
 from .layers import (CoarseReg, DescExtractor, FineReg, KeypointDetector,
-                     Regression6DHead, RegressionHead, SVDHead)
+                     Regression6DHead, RegressionHead, SVDHead, compute_dtype)
 from .ptv3 import PointTransformerEncoder
 
 HEADS = {'svd': SVDHead, 'regression': RegressionHead, 'regression6d': Regression6DHead}
@@ -26,14 +26,15 @@ class HierFeatureExtraction(nn.Module):
     the mean-normalised inverse sigmas of level i.  Descriptors come from a
     PTv3 encoder over the keypoints (`backbone='ptv3'`) or, for any other
     backbone, as in the JAX module, from a `DescExtractor` over the
-    detector's grouped neighbourhoods.  Raises `NotImplementedError` for a
-    `compute_dtype` other than float32 and for `seq_axis`, not ported yet."""
+    detector's grouped neighbourhoods.  `cfg.compute_dtype` sets every
+    submodule's compute dtype (`layers.compute_dtype`); xyz, sigmas and the
+    WFPS weights stay f32.  Raises `NotImplementedError` for `seq_axis`,
+    not ported yet, and for a compute dtype other than float32 or
+    bfloat16."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.compute_dtype != 'float32':
-            raise NotImplementedError(
-                f'compute_dtype {cfg.compute_dtype!r} is not ported yet (float32 only)')
+        dtype = compute_dtype(cfg.compute_dtype)
         if cfg.seq_axis is not None:
             raise NotImplementedError(
                 f'seq_axis {cfg.seq_axis!r}: sequence parallelism is not ported yet')
@@ -41,15 +42,16 @@ class HierFeatureExtraction(nn.Module):
         in_ch = 0
         for i, lvl in enumerate(cfg.levels):
             self.add_module(f'detector_{i + 1}', KeypointDetector(
-                in_ch, lvl.nsample, lvl.k, lvl.conv_channels, cfg.use_fps))
+                in_ch, lvl.nsample, lvl.k, lvl.conv_channels, cfg.use_fps, dtype))
             if cfg.backbone == 'ptv3':
                 self.add_module(f'ptv3_{i + 1}', PointTransformerEncoder(
                     lvl.conv_channels[-1], lvl.desc_dim, cfg.ptv3_depths,
                     cfg.ptv3_num_heads, cfg.ptv3_patch_sizes[i],
-                    cfg.ptv3_mlp_ratio, cfg.ptv3_grid_size, cfg.ptv3_cpe))
+                    cfg.ptv3_mlp_ratio, cfg.ptv3_grid_size, cfg.ptv3_cpe, dtype))
             else:
                 self.add_module(f'desc_extractor_{i + 1}', DescExtractor(
-                    in_ch + 4, lvl.conv_channels[-1], lvl.conv_channels, lvl.desc_dim))
+                    in_ch + 4, lvl.conv_channels[-1], lvl.conv_channels, lvl.desc_dim,
+                    dtype))
             in_ch = lvl.conv_channels[-1]
 
     def forward(self, points: torch.Tensor) -> dict:
@@ -89,11 +91,12 @@ class RegistrationModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.feature_extraction = HierFeatureExtraction(cfg)
+        dtype = compute_dtype(cfg.compute_dtype)
         c1, c2, c3 = (lvl.desc_dim for lvl in cfg.levels)
         self.coarse_corres = CoarseReg(cfg.coarse_k, c3, cfg.use_sim, cfg.use_neighbor,
-                                       cfg.circle_dists, cfg.mi_from_coarse)
-        self.fine_corres_2 = FineReg(cfg.fine_k, c2, cfg.mi_from_fine2)
-        self.fine_corres_1 = FineReg(cfg.fine_k, c1)
+                                       cfg.circle_dists, cfg.mi_from_coarse, dtype)
+        self.fine_corres_2 = FineReg(cfg.fine_k, c2, cfg.mi_from_fine2, dtype)
+        self.fine_corres_1 = FineReg(cfg.fine_k, c1, dtype=dtype)
         self.pose_head = HEADS[cfg.head]()
 
     @fp32_numerics()

@@ -9,8 +9,10 @@
              (`models/attention.py`)
 * model_v6 - PTv3 descriptor backbone (A2, the flagship)
 
-Not ported yet, so refused with `NotImplementedError`: `compute_dtype`
-other than float32 (every model) and `seq_axis` (`RegistrationModel`).
+Every preset builds in `compute_dtype` float32 or bfloat16 (the JAX
+package's bf16 policy, `models/layers.py`).  Not ported yet, so refused
+with `NotImplementedError`: `seq_axis` (`RegistrationModel`), and any
+other compute dtype.
 """
 from __future__ import annotations
 

@@ -4,14 +4,15 @@ plain versions, and the autograd Function that joins them.
 K3 replaces `pcd_reg_hregnet_tpu/ops/pallas/attention.py::_attn_kernel`;
 the kernel is `csrc/attention.cu`, a tiled flash kernel on the tensor cores
 (3xTF32 in f32, bf16 mma in bf16).  K3b replaces that file's `_bwd` (the
-`custom_vjp` backward); the kernel is `csrc/attention_bwd.cu` (f32 only), a
-one-launch FlashAttention-2 backward on the tensor cores (3xTF32) that
-takes each query row's log-sum-exp from the forward.  Layout is the JAX
+`custom_vjp` backward); the kernel is `csrc/attention_bwd.cu`, a one-launch
+FlashAttention-2 backward on the tensor cores (3xTF32 in f32, bf16 mma in
+bf16) that takes each query row's log-sum-exp from the forward.  Layout is the JAX
 function's: q, k, v [R, H, K, d] -> out [R, H, K, d] in q's dtype, softmax
-in f32.  Both kernels take any K and d and any strides with a contiguous
-last dim; `plan` is K3's tiling and `plan_backward` K3b's.  The model goes
-through `PatchAttentionFunction`, so autograd sees every write of the
-kernels.
+in f32.  Both kernels take f32 or bf16, any K and d and any strides with
+a contiguous last dim; `plan` is K3's tiling and `plan_backward` K3b's.
+The model goes through `PatchAttentionFunction`, so autograd sees every
+write of the kernels.  Each wrapper counts its launches in `launches` and,
+per dtype, in `launches_by_dtype`.
 """
 from __future__ import annotations
 
@@ -241,11 +242,25 @@ def patch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != 'cuda':
         raise ValueError(f'patch_attention: unsupported device {q.device}')
     out = _launch(q, k, v, scale, out, lse=lse)
-    patch_attention.launches += 1
+    _count(patch_attention, q.dtype)
     return out
 
 
+def _count(wrapper, dtype: torch.dtype) -> None:
+    """One launch of `wrapper`'s kernel in `dtype`."""
+    wrapper.launches += 1
+    wrapper.launches_by_dtype[dtype] += 1
+
+
+def reset_counts() -> None:
+    """Set both wrappers' launch counts, total and per dtype, to 0."""
+    for wrapper in (patch_attention, patch_attention_backward):
+        wrapper.launches = 0
+        wrapper.launches_by_dtype = dict.fromkeys(_DTYPE_CODES, 0)
+
+
 patch_attention.launches = 0
+patch_attention.launches_by_dtype = dict.fromkeys(_DTYPE_CODES, 0)
 
 
 def patch_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -267,7 +282,7 @@ def patch_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torc
 class BackwardPlan:
     """K3b's tiling of one call (`csrc/attention_bwd.cu` computes the same
     `dp`, `bm`, `stages`, `cluster` and `smem`: `pcdreg_attention_bwd_plan`)."""
-    dp: int       # padded head width a block holds (8..128)
+    dp: int       # padded head width a block holds (8..128; bf16 from 16)
     bn: int       # keys a block holds
     qs: int       # warps that share each 16 keys, each taking 1/qs of every query tile
     bm: int       # query rows per streamed tile
@@ -281,9 +296,9 @@ class BackwardPlan:
 
 
 def plan_backward(R: int, H: int, K: int, d: int, tile: Optional[tuple] = None,
-                  sms: int = SMS) -> BackwardPlan:
-    """The tiling of `patch_attention_backward` over [R, H, K, d] (f32) on a
-    card with `sms` multiprocessors.
+                  sms: int = SMS, dtype: torch.dtype = torch.float32) -> BackwardPlan:
+    """The tiling of `patch_attention_backward` over [R, H, K, d] in `dtype`
+    on a card with `sms` multiprocessors.
 
     `tile` is one of `BWD_TILES`, (bn, qs).  Without it (the choice
     follows the sweep of `chip_smoke.py` on an H100, PERF.md): of the key
@@ -296,17 +311,21 @@ def plan_backward(R: int, H: int, K: int, d: int, tile: Optional[tuple] = None,
     dQ path.
     """
     wide = d > WIDE
-    dp = WIDE if wide else padded_width(d, torch.float32)
-    bm = 32 if dp == WIDE else 64
+    dp = WIDE if wide else padded_width(d, dtype)
+    es = 4 if dtype == torch.float32 else 2
     stages = 2
     slices = -(-d // WIDE) if wide else 1
-    kp = -(-K // bm) * bm
 
-    def smem_of(bn, qs, cluster):
+    def query_rows(qs):   # a warp's query share a multiple of 16 in bf16
+        return max(32 if dp == WIDE else 64, 16 * qs if es == 2 else 0)
+
+    def smem_of(bn, qs, cluster):   # rows of every tile padded by 16 bytes
+        bm = query_rows(qs)
+        kp = -(-K // bm) * bm
         rows = kp if cluster else bm
-        ring = max(stages * 2 * bm, 2 * qs * bn) * (dp + 4)
-        return 4 * (2 * bn * (dp + 4) + ring + bn * (bm + 4) + 2 * rows
-                    + (kp * (dp + 4) if cluster else 0))
+        ring = max(stages * 2 * bm * (dp + 16 // es) * es, 2 * qs * bn * (dp + 4) * 4)
+        return (2 * bn * (dp + 16 // es) * es + ring + bn * (bm + 16 // es) * es
+                + 4 * 2 * rows + (4 * kp * (dp + 4) if cluster else 0))
 
     def clustered(bn, qs):
         return not wide and -(-K // bn) <= MAX_CLUSTER and smem_of(bn, qs, True) <= MAX_SMEM
@@ -329,8 +348,8 @@ def plan_backward(R: int, H: int, K: int, d: int, tile: Optional[tuple] = None,
     bn, qs = tile
     ntk = -(-K // bn)
     cl = clustered(bn, qs)
-    return BackwardPlan(dp, bn, qs, bm, stages, ntk if cl else 0, slices, smem_of(bn, qs, cl),
-                        (R * H * ntk, slices), 2 * bn * qs)
+    return BackwardPlan(dp, bn, qs, query_rows(qs), stages, ntk if cl else 0, slices,
+                        smem_of(bn, qs, cl), (R * H * ntk, slices), 2 * bn * qs)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -341,8 +360,8 @@ def _backward_args(shape: tuple, dtype: torch.dtype, strides: tuple, tile: Optio
     layout."""
     if len(shape) != 4:
         raise ValueError(f'patch_attention_backward takes [R, H, K, d], got {shape}')
-    if dtype != torch.float32:
-        raise ValueError(f'patch_attention_backward kernel takes f32, got {dtype}')
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f'patch_attention_backward kernel takes f32 or bf16, got {dtype}')
     R, H, K, d = shape
     names = ('q', 'k', 'v', 'o', 'g', 'dq', 'dk', 'dv')
     for name, st in zip(names, strides):
@@ -355,9 +374,9 @@ def _backward_args(shape: tuple, dtype: torch.dtype, strides: tuple, tile: Optio
     if tile is not None and tile not in BWD_TILES:
         raise ValueError(f'patch_attention_backward: no kernel for tiling {tile} (one of '
                          f'{BWD_TILES})')
-    p = plan_backward(R, H, K, d, tile, _sm_count(dev))
-    params = (ctypes.c_longlong * 30)(*(x for st in strides for x in st[:3]), *shape, p.bn,
-                                      p.qs)
+    p = plan_backward(R, H, K, d, tile, _sm_count(dev), dtype)
+    params = (ctypes.c_longlong * 31)(*(x for st in strides for x in st[:3]), *shape, p.bn,
+                                      p.qs, _DTYPE_CODES[dtype])
     return p, params
 
 
@@ -407,8 +426,9 @@ def patch_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides).  Written into `out` = (dq, dk, dv) views when given, else new
     contiguous tensors.  `lse`: the forward's log-sum-exp of each query row
     (`patch_attention(..., lse=)`), contiguous f32 [R, H, K], which the
-    kernel requires.  Kernel K3b (one launch) on CUDA f32 tensors, the
-    plain version on CPU tensors (which reads neither o nor lse)."""
+    kernel requires.  Kernel K3b (one launch) on CUDA f32 or bf16 tensors
+    (dq, dk, dv in that dtype; f32 inside), the plain version on CPU
+    tensors (which reads neither o nor lse)."""
     if q.device.type == 'cpu':
         ref = patch_attention_backward_reference(q, k, v, g, scale)
         if out is None:
@@ -419,11 +439,12 @@ def patch_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != 'cuda':
         raise ValueError(f'patch_attention_backward: unsupported device {q.device}')
     out = _launch_backward(q, k, v, o, g, scale, out, lse)
-    patch_attention_backward.launches += 1
+    _count(patch_attention_backward, q.dtype)
     return out
 
 
 patch_attention_backward.launches = 0
+patch_attention_backward.launches_by_dtype = dict.fromkeys(_DTYPE_CODES, 0)
 
 
 def unpack_qkv(qkv: torch.Tensor) -> tuple:

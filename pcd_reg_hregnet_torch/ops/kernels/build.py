@@ -81,7 +81,7 @@ class KernelLibrary:
         lib.pcdreg_patch_attention_bwd.restype = ci
         lib.pcdreg_attention_plan.argtypes = [ci, ci, ci, ci, pi, pi, pi]
         lib.pcdreg_attention_plan.restype = ci
-        lib.pcdreg_attention_bwd_plan.argtypes = [ci, ci, ci, ci, pi, pi, pi, pi]
+        lib.pcdreg_attention_bwd_plan.argtypes = [ci, ci, ci, ci, ci, pi, pi, pi, pi]
         lib.pcdreg_attention_bwd_plan.restype = ci
         lib.pcdreg_attention_bwd_tiling.argtypes = [ci, pi, pi]
         lib.pcdreg_attention_bwd_tiling.restype = ci

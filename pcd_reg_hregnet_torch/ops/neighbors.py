@@ -11,21 +11,59 @@ from typing import Optional
 import torch
 
 
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    """sum(x * x) over the last axis; in bf16 as XLA fuses it (f32 squares
+    and sum, rounded once)."""
+    if x.dtype.itemsize >= 4:
+        return torch.sum(x * x, dim=-1, keepdim=True)
+    return torch.sum(x.float() * x.float(), dim=-1, keepdim=True).to(x.dtype)
+
+
 def pairwise_sqdist(query: torch.Tensor, database: torch.Tensor) -> torch.Tensor:
     """Squared euclidean distances [B, M, N] between [B, M, D] and [B, N, D]."""
-    qn = torch.sum(query * query, dim=-1, keepdim=True)          # [B,M,1]
-    dn = torch.sum(database * database, dim=-1, keepdim=True)    # [B,N,1]
+    qn = _sum_sq(query)                                         # [B,M,1]
+    dn = _sum_sq(database)                                      # [B,N,1]
     cross = torch.bmm(query, database.transpose(1, 2))
     return torch.clamp_min(qn - 2.0 * cross + dn.transpose(1, 2), 0.0)
 
 
 def knn(query: torch.Tensor, database: torch.Tensor, k: int):
-    """Exact k nearest neighbours, ascending by distance.
+    """Exact k nearest neighbours, ascending by distance, and among equal
+    distances the lower index first, as the JAX package's `top_k` takes
+    them (`torch.topk` promises no order of ties, and bf16 descriptor
+    distances tie often).
 
-    Returns (sqdists [B, M, k], idx [B, M, k] int64).
+    One float `topk` of k + 1 selects; the k are then ordered by (distance,
+    index).  Only a row whose k-th and (k+1)-th distances are equal has a
+    selection that ties decide: such rows (rare in f32) are selected again
+    by `_select_ties`.
+
+    Returns (sqdists [B, M, k] in the inputs' dtype, idx [B, M, k] int64).
     """
     d2 = pairwise_sqdist(query, database)
-    return torch.topk(d2, k, dim=-1, largest=False, sorted=True)
+    if k >= d2.shape[-1]:
+        idx = _select_ties(d2, k)
+        return torch.gather(d2, -1, idx), idx
+    vals, idx = torch.topk(d2, k + 1, dim=-1, largest=False, sorted=True)
+    boundary = vals[..., k - 1] == vals[..., k]
+    idx, order = torch.sort(idx[..., :k], dim=-1)
+    order = torch.sort(torch.gather(vals, -1, order), dim=-1, stable=True).indices
+    idx = torch.gather(idx, -1, order)
+    if bool(boundary.any()):
+        rows = boundary.nonzero(as_tuple=True)
+        idx[rows] = _select_ties(d2[rows], k)
+    return torch.gather(d2, -1, idx), idx
+
+
+def _select_ties(d2: torch.Tensor, k: int) -> torch.Tensor:
+    """The k smallest of each row of `d2` (>= 0) by (distance, index): one
+    `topk` on an int64 key, the distance's f32 bits (order-preserving for
+    d2 >= 0) above the index; a stable sort for f64."""
+    if d2.dtype == torch.float64:   # no room for the index beside f64 bits
+        return torch.sort(d2, dim=-1, stable=True).indices[..., :k]
+    bits = (d2.float() + 0.0).view(torch.int32).to(torch.int64)   # + 0.0: no -0.0
+    key = bits * (1 << 32) + torch.arange(d2.shape[-1], device=d2.device)
+    return torch.topk(key, k, dim=-1, largest=False, sorted=True).indices
 
 
 def knn_gather(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,8 @@
 
     python -m pcd_reg_hregnet_torch.train --experiment reg_v11 --dataset synthetic \\
         [--batch-size 8 --epochs N --max-steps N --init PATH --pretrain-feats PATH \\
-         --resume PATH|auto --log-dir DIR --device cuda|cpu --npoints N --debug-scale --watch]
+         --resume PATH|auto --log-dir DIR --device cuda|cpu --npoints N --debug-scale --watch \\
+         --compute-dtype float32|bfloat16]
 
 Every experiment of the table runs (`reg_v0`-`reg_v13`, `baseline`,
 `man_registration`; `feats`/`feats_desc` train the registration objective
@@ -18,7 +19,10 @@ model: an exported one (`port_assets/r5_v11_knn_best_rre.npz`: reg_v11;
 `port_assets/r4_v6_50_best_rre.npz`: reg_v6, MI discriminators included)
 or a train checkpoint directory.  `--npoints` and `--debug-scale`
 (64/32/16 keypoints, one PTv3 block, patches of 16) make a run small
-enough for the CPU.  Writes one JSON line per step and per validation to
+enough for the CPU.  `--compute-dtype bfloat16` trains in the JAX
+package's bf16 policy (parameters and optimizer state f32).  `--resume`
+takes the model config (compute dtype included) from the checkpoint, the
+options on top.  Writes one JSON line per step and per validation to
 `<log-dir>/metrics.jsonl`, checkpoints under `<log-dir>/ckpt/`, and prints
 a JSON summary.
 """
@@ -26,11 +30,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
-from .experiments import add_config_args, config_from_args
-from .loop import fit
+from ..utils import checkpoint
+from .experiments import add_config_args, config_from_args, experiment
+from .loop import fit, latest_checkpoint
 
 
 def main(argv=None) -> int:
@@ -43,7 +49,14 @@ def main(argv=None) -> int:
     ap.add_argument('--log-dir', default='runs/torch')
     args = ap.parse_args(argv)
 
-    cfg = config_from_args(args)
+    # a resumed run's model config comes from its checkpoint, the options on
+    # top (compute dtype included), as the JAX CLI's `train --resume` does
+    resume = args.resume
+    if resume == 'auto':
+        resume = latest_checkpoint(os.path.join(
+            args.log_dir, experiment(args.experiment).train.ckpt_dir))
+    model_base = checkpoint.load_config(resume).model if resume else None
+    cfg = config_from_args(args, model_base=model_base)
     t = time.perf_counter()
     state, val = fit(cfg, log_dir=args.log_dir, max_steps=args.max_steps, resume=args.resume,
                      init=args.init, pretrain_feats=args.pretrain_feats, device=args.device)

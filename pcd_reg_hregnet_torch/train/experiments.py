@@ -3,11 +3,12 @@ the reference's train-script matrix as `Config` data, copied entry for
 entry.
 
 `experiment(name)` returns the full `Config`.  Every entry trains on the
-port: every model preset (conv, PTv3 and attention backbones, SVD and
-regression heads, MI from the coarse or the second level) and the
-transformation, chamfer, MI and circle losses.  Still refused
-(`NotImplementedError`, where the model is built): `compute_dtype` other
-than float32 and `seq_axis`, which no entry sets.
+port, in f32 or in bf16 (`--compute-dtype`): every model preset (conv,
+PTv3 and attention backbones, SVD and regression heads, MI from the
+coarse or the second level) and the transformation, chamfer, MI and
+circle losses.  Still refused (`NotImplementedError`, where the model is
+built): `seq_axis`, which no entry sets, and a compute dtype other than
+float32 and bfloat16.
 """
 from __future__ import annotations
 
@@ -85,26 +86,39 @@ def add_config_args(ap) -> None:
     ap.add_argument('--max-steps', type=int, default=None)
     ap.add_argument('--seed', type=int, default=None)
     ap.add_argument('--npoints', type=int, default=None, help='points per cloud')
+    ap.add_argument('--compute-dtype', default=None, choices=('float32', 'bfloat16'),
+                    help='activation dtype of the compute path (for this model bfloat16 '
+                         'is mainly an activation-memory knob: the hot spots are gathers '
+                         'and sampling, not matmul throughput)')
     ap.add_argument('--debug-scale', action='store_true',
                     help='a small keypoint pyramid and PTv3 stack, for CPU runs')
     ap.add_argument('--watch', action='store_true', help='log per-module norms')
     ap.add_argument('--device', default='cuda')
 
 
-def config_from_args(args) -> Config:
-    """The experiment's config with the options of `add_config_args`."""
+def config_from_args(args, model_base=None) -> Config:
+    """The experiment's config with the options of `add_config_args`.
+    `model_base`, a `ModelConfig` (a resumed checkpoint's), replaces the
+    experiment's model config before the options apply, as the JAX CLI's
+    `_build_config(model_base=)` does."""
     cfg = experiment(args.experiment)
+    if model_base is not None:
+        cfg = dataclasses.replace(cfg, model=model_base)
     data = {k: v for k, v in (('dataset', args.dataset), ('batch_size', args.batch_size),
                               ('pcd_min_samples', args.npoints)) if v is not None}
     train = {k: v for k, v in (('epochs', args.epochs), ('seed', args.seed)) if v is not None}
     if args.watch:
         train['watch'] = True
     model = {}
+    if args.compute_dtype is not None:
+        model['compute_dtype'] = args.compute_dtype
     if args.debug_scale:
-        model = dict(levels=(LevelConfig(64, 16, (16, 16, 32), 32),
+        model.update(levels=(LevelConfig(64, 16, (16, 16, 32), 32),
                              LevelConfig(32, 8, (32, 32, 64), 64),
-                             LevelConfig(16, 8, (64, 64, 128), 128)),
-                     ptv3_patch_sizes=(16, 16, 16), ptv3_depths=(1,), ptv3_num_heads=(2,))
+                             LevelConfig(16, 8, (64, 64, 128), 128)))
+        if cfg.model.backbone == 'ptv3':
+            model.update(ptv3_patch_sizes=(16, 16, 16), ptv3_depths=(1,),
+                         ptv3_num_heads=(2,))
     return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **data),
                                train=dataclasses.replace(cfg.train, **train),
                                model=dataclasses.replace(cfg.model, **model))

@@ -10,6 +10,8 @@ backward and optimizer step without TF32.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import json
 import math
 import os
@@ -49,9 +51,10 @@ def create_state(cfg: Config, steps_per_epoch: int, *, device: str | torch.devic
     then the MI discriminators') seeded from `cfg.train.seed` (or `seed`;
     `models.zoo.init_weights`), or read from the checkpoint `init`
     (`utils/checkpoint.py::read`, exported or a train checkpoint directory;
-    it must record `cfg.model`), the model and the
-    objective's other leaves each strictly.  Raises `NotImplementedError`
-    for what is not ported."""
+    it must record `cfg.model` but for the compute dtype, which leaves the
+    parameters as they are: an f32 checkpoint starts a bf16 run), the model
+    and the objective's other leaves each strictly.  Raises
+    `NotImplementedError` for what is not ported."""
     dev = resolve_device(device)
     objective = RegistrationObjective(cfg)
     if init is None:
@@ -59,7 +62,7 @@ def create_state(cfg: Config, steps_per_epoch: int, *, device: str | torch.devic
             cfg.train.seed if seed is None else seed))
     else:
         saved, state_dict, extra = checkpoint.read(init)
-        if saved.model != cfg.model:
+        if dataclasses.replace(saved.model, compute_dtype=cfg.model.compute_dtype) != cfg.model:
             raise ValueError(f'{init} records another model configuration than '
                              f'cfg.model:\n{saved.model}\n{cfg.model}')
         objective.model.load_state_dict(state_dict, strict=True)

@@ -17,7 +17,9 @@
   The two packages must pick the same keypoints at every level (a
   weighted-FPS near-tie would make a difference real, so the test would say
   so and fail).
-* Checkpoints, resume and `fit` on the CPU.
+* Checkpoints, resume and `fit` on the CPU; the train command resumes
+  with the checkpoint's model config (compute dtype included), the options
+  on top, as the JAX CLI's `train --resume` does.
 """
 import dataclasses
 import json
@@ -164,8 +166,8 @@ class TestAttentionBackward:
             raise AssertionError('built before validating')
         monkeypatch.setattr(kattn.build, 'library', no_build)
         lse = torch.zeros(2, 2, 16)
-        with pytest.raises(ValueError, match='f32'):
-            kattn._launch_backward(*(t.bfloat16() for t in (q, k, v, q, g)), 0.5, None, lse)
+        with pytest.raises(ValueError, match='f32 or bf16'):
+            kattn._launch_backward(*(t.half() for t in (q, k, v, q, g)), 0.5, None, lse)
         with pytest.raises(ValueError, match='contiguous last dim'):
             kattn._launch_backward(q, k, torch.zeros(2, 2, 16, 16)[..., ::2], q, g, 0.5, None,
                                    lse)
@@ -642,12 +644,6 @@ class TestLoop:
         assert all(math.isfinite(float(v)) for v in m.values()), m
         assert hasattr(state.objective, 'mi_loss') == cfg.loss.mi
 
-    def test_bf16_refuses(self):
-        cfg = experiments.experiment('reg_v11')
-        with pytest.raises(NotImplementedError, match='compute_dtype'):
-            RegistrationObjective(dataclasses.replace(
-                cfg, model=dataclasses.replace(cfg.model, compute_dtype='bfloat16')))
-
     def test_mi_refuses_a_batch_of_one_in_training(self):
         """The MI negatives are the batch rolled by one: training refuses B=1,
         as JAX does; eval still runs it."""
@@ -738,3 +734,61 @@ class TestLoop:
             lambda mod, a, out: calls.append(a[0].shape[0]))
         m = loop.make_train_step()(state, batch)
         assert calls == [2 * BATCH] and math.isfinite(float(m['loss']))
+
+
+# --- the train command: --resume takes the checkpoint's model config -------
+
+def _cli_run(monkeypatch, argv):
+    """`python -m pcd_reg_hregnet_torch.train ARGV` on the CPU at 256 points
+    and B=2, with `fit` given small synthetic splits (the command's own
+    splits would validate 256 pairs); returns the Config it ran."""
+    from pcd_reg_hregnet_torch.train import __main__ as train_main
+    seen = []
+
+    def small_fit(cfg, **kw):
+        seen.append(cfg)
+        return loop.fit(cfg, datasets=_datasets(cfg), **kw)
+    monkeypatch.setattr(train_main, 'fit', small_fit)
+    assert train_main.main(['--device', 'cpu', '--npoints', str(POINTS), '--batch-size', '2',
+                            *argv]) == 0
+    return seen[0]
+
+
+class TestResumeCommand:
+    def test_resume_without_the_options_restores_and_steps(self, tmp_path, monkeypatch):
+        """A `--debug-scale` run resumed with no model options rebuilds the
+        checkpoint's small model (the options alone would build the full
+        one, which the strict restore refuses), restores and steps on."""
+        log = str(tmp_path)
+        first = _cli_run(monkeypatch, ['--debug-scale', '--max-steps', '1', '--log-dir', log])
+        again = _cli_run(monkeypatch, ['--max-steps', '2', '--resume', 'auto', '--log-dir', log])
+        assert again.model == first.model
+        assert json.loads((tmp_path / 'ckpt' / 'last' / 'meta.json').read_text())['step'] == 2
+
+    def test_bf16_run_resumed_without_the_flag_stays_bf16(self, tmp_path, monkeypatch):
+        log = str(tmp_path)
+        _cli_run(monkeypatch, ['--debug-scale', '--compute-dtype', 'bfloat16', '--max-steps',
+                               '1', '--log-dir', log])
+        again = _cli_run(monkeypatch, ['--max-steps', '2', '--resume', 'auto', '--log-dir', log])
+        assert again.model.compute_dtype == 'bfloat16'
+        saved = checkpoint.load_config(tmp_path / 'ckpt' / 'last')
+        assert saved.model.compute_dtype == 'bfloat16'
+        # an option still overrides the checkpoint's value
+        f32 = _cli_run(monkeypatch, ['--max-steps', '3', '--resume', 'auto', '--log-dir', log,
+                                     '--compute-dtype', 'float32'])
+        assert f32.model == dataclasses.replace(again.model, compute_dtype='float32')
+
+    def test_debug_scale_shrinks_ptv3_only_for_the_ptv3_backbone(self):
+        """`--debug-scale` sets the small pyramid for every backbone and the
+        PTv3 fields only where the backbone is ptv3, as the JAX CLI does."""
+        import argparse
+        ap = argparse.ArgumentParser()
+        experiments.add_config_args(ap)
+        conv = experiments.config_from_args(ap.parse_args(['--experiment', 'reg_v0',
+                                                           '--debug-scale']))
+        base = experiments.experiment('reg_v0').model
+        assert conv.model.levels != base.levels
+        assert (conv.model.ptv3_depths, conv.model.ptv3_patch_sizes) == (
+            base.ptv3_depths, base.ptv3_patch_sizes)
+        ptv = experiments.config_from_args(ap.parse_args(['--debug-scale']))
+        assert ptv.model.ptv3_depths == (1,) and ptv.model.ptv3_patch_sizes == (16, 16, 16)

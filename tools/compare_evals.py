@@ -3,8 +3,8 @@
 Each file is a results JSON of `evaluate` (either package) over the same
 split.  For every two files and every layer both hold, prints how many
 pairs put a pose outside the card-vs-CPU gate (rotation entries 1e-3,
-translation 1e-2 m), which pairs, the largest deviations, and each file's
-rre_deg, rte_m and recall.  Poses are rebuilt from `pred_calib`.  Then
+translation 1e-2 m; `--tol R T` sets another), which pairs, the largest
+deviations, and each file's rre_deg, rte_m and recall.  Poses are rebuilt from `pred_calib`.  Then
 the spread of the summary: the standard deviation of the mean of the
 per-pair differences d of rre, rte and the recall's success flag,
 sqrt(sum d^2) / n, the noise a summary gate must hold a correct
@@ -32,14 +32,17 @@ TOL_R, TOL_T = 1e-3, 1e-2
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('files', nargs='+')
+    ap.add_argument('--tol', type=float, nargs=2, default=(TOL_R, TOL_T), metavar=('R', 'T'),
+                    help='the per-pair gate: rotation entries, translation m')
     args = ap.parse_args()
+    tol_r, tol_t = args.tol
     results = {}
     for path in args.files:
         with open(path) as f:
             results[path] = json.load(f)
     for a, b in itertools.combinations(args.files, 2):
         for name, (dR, dt) in pose_deviation(results[a], results[b]).items():
-            bad = np.flatnonzero((dR > TOL_R) | (dt > TOL_T))
+            bad = np.flatnonzero((dR > tol_r) | (dt > tol_t))
             la, lb = results[a][name], results[b][name]
             print(f'{a} vs {b} {name}: {len(bad)} of {len(dR)} pairs outside {bad.tolist()}; '
                   f'max |dR| {dR.max():.2e}, max |dt| {dt.max():.2e} m, median |dR| '

@@ -28,7 +28,10 @@ writes, into `port_assets/`:
   the name carried the variant, keep theirs: `EVAL_NAMES`), the JAX
   package's own `eval.runner.evaluate(cfg, state, split='test',
   icp='point_to_plane')` of the checkpoint on the CPU (exact kNN there),
-  the port's yardstick;
+  the port's yardstick; with `--compute-dtype bfloat16` the same eval with
+  the model config's `compute_dtype` overridden, as the JAX CLI's `eval
+  --compute-dtype` runs it, named with the dtype
+  (`v11_r5_eval_bf16_jax_cpu.json`);
 * with `--feats` (a descriptor-stage feats checkpoint):
   `<tag>_<rY>_feats_jax_cpu.json`, the JAX package's
   `FeatsObjective(train_desc=True)` at `train=False` on the first
@@ -38,6 +41,7 @@ writes, into `port_assets/`:
   `xyz_3` of both clouds.
 
     JAX_PLATFORMS=cpu python tools/export_torch_weights.py [--ckpt NAME] [--eval] [--pairs N]
+    JAX_PLATFORMS=cpu python tools/export_torch_weights.py --eval --compute-dtype bfloat16
     JAX_PLATFORMS=cpu python tools/export_torch_weights.py --ckpt r5_feats_desc_feats_descriptor --feats
 """
 from __future__ import annotations
@@ -137,14 +141,21 @@ def write_tables(out_dir: str, data_cfg) -> None:
             os.replace(fresh, path)
 
 
-def yardstick_name(name: str, ckpt_dir: str, kind: str) -> str:
+def yardstick_name(name: str, ckpt_dir: str, kind: str, compute_dtype=None) -> str:
     """`r4_v11_warm_best_rre` (directory `best_rre`), 'eval' ->
-    `v11_warm_r4_eval_jax_cpu.json`; `EVAL_NAMES` for the older two."""
+    `v11_warm_r4_eval_jax_cpu.json`; `EVAL_NAMES` for the older two.  An
+    eval in another compute dtype than the checkpoint's carries it:
+    'bfloat16' -> `v11_r5_eval_bf16_jax_cpu.json`."""
     if kind == 'eval' and name in EVAL_NAMES:
-        return EVAL_NAMES[name]
-    run = name.split('_')[0]
-    tag = name[len(run) + 1:].removesuffix('_' + os.path.basename(ckpt_dir))
-    return f'{tag}_{run}_{kind}_jax_cpu.json'
+        base = EVAL_NAMES[name]
+    else:
+        run = name.split('_')[0]
+        tag = name[len(run) + 1:].removesuffix('_' + os.path.basename(ckpt_dir))
+        base = f'{tag}_{run}_{kind}_jax_cpu.json'
+    if compute_dtype is None:
+        return base
+    short = {'bfloat16': 'bf16', 'float32': 'f32'}[compute_dtype]
+    return base.replace(f'_{kind}_', f'_{kind}_{short}_')
 
 
 def test_pairs(cfg, pairs: int):
@@ -168,8 +179,13 @@ def reference_meta(name: str, ds, batch_size: int, seconds: float) -> dict:
             'seconds': seconds, 'numpy': np.__version__}
 
 
-def run_eval(name: str, ckpt_dir: str, out_dir: str, pairs: int) -> None:
-    """The JAX package's own eval of the checkpoint, on the CPU."""
+def run_eval(name: str, ckpt_dir: str, out_dir: str, pairs: int,
+             compute_dtype=None) -> None:
+    """The JAX package's own eval of the checkpoint, on the CPU; with
+    `compute_dtype`, its model config's `compute_dtype` overridden as the
+    JAX CLI's `eval --compute-dtype` does."""
+    import dataclasses
+
     import jax
     import numpy as np
     from pcd_reg_hregnet_tpu.core.config import Config
@@ -182,6 +198,9 @@ def run_eval(name: str, ckpt_dir: str, out_dir: str, pairs: int) -> None:
         raise RuntimeError('run with JAX_PLATFORMS=cpu: the yardstick is the CPU eval')
     with open(os.path.join(ckpt_dir, 'meta.json')) as f:
         cfg = Config.from_json(json.load(f)['config'])
+    if compute_dtype is not None:
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, compute_dtype=compute_dtype))
     ds = test_pairs(cfg, pairs)
     sample = next(batch_iterator(ds, cfg.data.batch_size, drop_last=False))
     state, _ = create_state(cfg, RegistrationObjective(cfg), sample, 1)
@@ -193,8 +212,10 @@ def run_eval(name: str, ckpt_dir: str, out_dir: str, pairs: int) -> None:
     seconds = time.perf_counter() - t
     out['reference'] = dict(reference_meta(name, ds, cfg.data.batch_size, seconds),
                             made_by='tools/export_torch_weights.py --eval', icp=icp,
-                            icp_threshold=icp_threshold, icp_iters=icp_iters)
-    with open(os.path.join(out_dir, yardstick_name(name, ckpt_dir, 'eval')), 'w') as f:
+                            icp_threshold=icp_threshold, icp_iters=icp_iters,
+                            compute_dtype=cfg.model.compute_dtype)
+    out_name = yardstick_name(name, ckpt_dir, 'eval', compute_dtype)
+    with open(os.path.join(out_dir, out_name), 'w') as f:
         json.dump(out, f)
     print('eval', len(ds), 'pairs in', round(seconds, 1), 's;', out['summary'])
 
@@ -264,6 +285,9 @@ def main() -> int:
                     help='also write the JAX-CPU eval of the test split (long)')
     ap.add_argument('--pairs', type=int, default=SPLIT_LENGTHS['test'],
                     help='evaluate the first N test pairs only')
+    ap.add_argument('--compute-dtype', default=None, choices=['float32', 'bfloat16'],
+                    help='run --eval in this compute dtype (the checkpoint\'s own if unset); '
+                         'the file name carries it')
     ap.add_argument('--feats', action='store_true',
                     help='also write the JAX-CPU feats losses of a descriptor-stage checkpoint')
     ap.add_argument('--feats-pairs', type=int, default=FEATS_PAIRS)
@@ -286,7 +310,7 @@ def main() -> int:
         print(f'{len(leaves)} leaves, '
               f'{sum(a.nbytes for a in leaves.values()) / 2**20:.1f} MiB -> {args.out}')
         if args.eval:
-            run_eval(args.ckpt, ckpt_dir, args.out, args.pairs)
+            run_eval(args.ckpt, ckpt_dir, args.out, args.pairs, args.compute_dtype)
         if args.feats:
             run_feats(args.ckpt, ckpt_dir, args.out, args.feats_pairs)
     finally:
