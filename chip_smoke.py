@@ -38,11 +38,16 @@ Phases, each printing its own line with seconds:
    one; timed back to back and as device time beside its bounds (3xTF32 and
    f32 CUDA cores) and SDPA's backward, with the sweep of tilings behind
    `plan_backward` (a note where its choice reads more than 5% slower than
-   the sweep's best).  Then K3b in bf16 the same way (bf16 mma.sync, the
-   plain backward's f32 result cast to bf16, within `ATTN_BWD_TOL_BF16`
-   of each gradient's largest value; K3's log-sum-exp from bf16 inputs
-   within `ATTN_LSE_TOL`), beside SDPA's bf16 backward and its bound on
-   the bf16 tensor cores.  K3 and K3b each have an f32 and a bf16 row in
+   the sweep's best).  Then K3b in bf16 the same way (the plain backward's
+   f32 result cast to bf16, within `ATTN_BWD_TOL_BF16` of each gradient's
+   largest value; K3's log-sum-exp from bf16 inputs within
+   `ATTN_LSE_TOL`), beside SDPA's bf16 backward and its bound on the bf16
+   tensor cores: each shape on the route `plan_backward` names for it
+   (`csrc/attention_bwd_bf16.cu` on wgmma for every shape of the train
+   step, the bf16 mma.sync instantiations of `csrc/attention_bwd.cu` for
+   the rest), the route's plan against the compiled one, every tiling of
+   the route, and the `ATTN_OPENED_WGMMA` shapes as well, each held to the
+   wgmma route.  K3 and K3b each have an f32 and a bf16 row in
    the JSON line;
 4. serve: `model_v6` at full width (8096-point clouds, 1024/512/256
    keypoints, PTv3 depths (2,2,2)) with the trained flagship weights
@@ -183,6 +188,10 @@ ATTN_TOL = {'float32': 1e-5, 'bfloat16': 2e-2}
 # odd widths whose rows cannot be copied 16 bytes at a time
 ATTN_OPENED = ((2, 2, 1024, 32), (4, 2, 256, 128), (4, 3, 64, 24), (2, 2, 64, 256),
                (4, 2, 100, 16), (2, 3, 100, 5), (1, 1, 1, 1), (2, 1, 33, 300))
+# [R, H, K, d] checked for correctness only in bf16, each on the wgmma
+# route of K3b (csrc/attention_bwd_bf16.cu): K = 1, one ragged key tile,
+# clusters of 8 and of 5 key tiles (the last ragged)
+ATTN_OPENED_WGMMA = ((1, 1, 1, 8), (2, 2, 33, 32), (2, 2, 512, 32), (2, 2, 300, 64))
 GLOBAL_NS = (131072, 1 << 20)                    # FPS rows in device memory
 # CPU vs card at B=1: an L2/L3 weighted-FPS near-tie may select another
 # keypoint when sigmas differ in the last bits between the two devices
@@ -715,9 +724,20 @@ def check_attention_backward(torch, lib, kattn, gen, t0, dtype=None) -> dict:
     if tuple(compiled) != kattn.BWD_TILES:
         raise AssertionError(f'csrc/attention_bwd.cu tilings {compiled} differ from '
                              f'ops/kernels/attention.py BWD_TILES {kattn.BWD_TILES}')
+    bm, st, cl = (ctypes.c_int() for _ in range(3))
     for K in (1, 33, 64, 100, 128, 256, 512, 513, 1024):
         for d in (1, 5, 8, 16, 24, 32, 64, 100, 128, 129, 256, 300):
-            for tile in kattn.BWD_TILES:
+            if dtype == torch.bfloat16:   # the route, by shape: the wgmma kernel's plan or -1
+                p = kattn.plan_backward(1, 1, K, d, dtype=dtype)
+                smem = lib.lib.pcdreg_attention_bwd_bf16_plan(K, d, a, bm, st, cl)
+                got = ('wgmma' if smem >= 0 else 'mma', smem, a.value, bm.value, st.value,
+                       cl.value)
+                if got[0] != p.route or p.route == 'wgmma' and got[1:] != (
+                        p.smem, p.dp, p.bm, p.stages, p.cluster):
+                    raise AssertionError(f'attention backward bf16 plan K={K} d={d}: csrc '
+                                         f'(route, smem, dp, bm, stages, cluster) {got} != '
+                                         f'ops/kernels {p}')
+            for tile in kattn.backward_tilings(K, d, dtype):
                 p = kattn.plan_backward(1, 1, K, d, tile, dtype=dtype)
                 smem = lib.lib.pcdreg_attention_bwd_plan(K, d, *tile, kattn._DTYPE_CODES[dtype],
                                                          a, b, c, e)
@@ -746,7 +766,7 @@ def check_attention_backward(torch, lib, kattn, gen, t0, dtype=None) -> dict:
             raise AssertionError(f'patch_attention lse {(R, H, K, d)}: max |err| {lse_err} '
                                  f'> {ATTN_LSE_TOL}')
         worst = 0.0
-        for tile in [None, *kattn.BWD_TILES]:
+        for tile in [None, *kattn.backward_tilings(K, d, dtype)]:
             bufs = [torch.empty_like(qkv) for _ in range(2)]
             for buf in bufs:
                 if tile is None:   # the wrapper, as the train step calls it
@@ -797,19 +817,23 @@ def check_attention_backward(torch, lib, kattn, gen, t0, dtype=None) -> dict:
             p = kattn.plan_backward(R, H, K, d, sms=torch.cuda.get_device_properties(0)
                                     .multi_processor_count, dtype=dtype)
             route = '3xTF32' if dtype == torch.float32 else 'bf16 tensor cores'
+            tiling = (f'route {p.route}, tiling {(p.bn, p.qs)}' if p.route == 'mma' else
+                      f'route {p.route}, {p.bn} keys x {p.bm} query rows, {p.stages} stages')
             log('kernels', t0, f'patch_attention_backward B={B} R={R} H={H} K={K} d={d} {name}: '
                 f'max|err|/max|value| {err:.2e} (every tiling, two calls bit-identical), lse '
                 f'max|err| {lse_err:.2e}; back to back: kernel {ms * 1e3:.2f} us, plain '
                 f'{plain_ms * 1e3:.2f} us, sdpa backward {lib_ms * 1e3:.2f} us; device time: '
-                f'kernel {dev * 1e3:.2f} us (tiling {(p.bn, p.qs)}, cluster {p.cluster}), sdpa '
+                f'kernel {dev * 1e3:.2f} us ({tiling}, cluster {p.cluster}), sdpa '
                 f'backward {lib_dev * 1e3:.2f} us; bound {bound * 1e3:.2f} us ({kind}, {route}), '
                 f'{max(b_bytes, b_67) * 1e3:.2f} us (67 TFLOP/s); share of bound {bound / dev:.1%}')
             sweep = {t: device_ms(lambda t=t: kattn._launch_backward(
-                q, k, v, o, g, scale, None, lse, t), 20) for t in kattn.BWD_TILES}
-            log('kernels', t0, '  sweep (bn, qs), device time: ' + ', '.join(
-                f'{t} {x * 1e3:.2f} us' for t, x in sweep.items()))
-            best = min(sweep, key=sweep.get)
-            if sweep[(p.bn, p.qs)] > 1.05 * sweep[best]:
+                q, k, v, o, g, scale, None, lse, t), 20)
+                for t in kattn.backward_tilings(K, d, dtype)}
+            if sweep:
+                log('kernels', t0, '  sweep (bn, qs), device time: ' + ', '.join(
+                    f'{t} {x * 1e3:.2f} us' for t, x in sweep.items()))
+            best = min(sweep, key=sweep.get) if sweep else None
+            if sweep and sweep[(p.bn, p.qs)] > 1.05 * sweep[best]:
                 log('kernels', t0, f'  note: plan_backward\'s {(p.bn, p.qs)} reads '
                     f'{sweep[(p.bn, p.qs)] / sweep[best] - 1:.0%} slower than {best}')
             if B == BATCH:   # per train step: two blocks per stage, two towers
@@ -828,13 +852,36 @@ def check_attention_backward(torch, lib, kattn, gen, t0, dtype=None) -> dict:
         f'{tot["plain_ms"]:.4f} ms; device time: kernel {dev_step:.4f} ms, sdpa backward '
         f'{lib_dev_step:.4f} ms; bound {tot["bound_ms"]:.4f} ms ({route}; share '
         f'{tot["bound_ms"] / dev_step:.1%}), {bound_67:.4f} ms (67 TFLOP/s f32)')
-    for shape in ATTN_OPENED:
+    wgmma = ATTN_OPENED_WGMMA if dtype == torch.bfloat16 else ()
+    for shape in ATTN_OPENED + wgmma:
+        route = kattn.backward_route(shape[2], shape[3], dtype)
+        if shape in wgmma and route != 'wgmma':
+            raise AssertionError(f'patch_attention_backward {shape} {name}: route {route}, '
+                                 f'not the wgmma route this shape is to check')
         _, err, lse_err = case(*shape)
-        log('kernels', t0, f'patch_attention_backward {shape} {name}: max|err|/max|value| '
-            f'{err:.2e} over every tiling, two calls bit-identical; lse max|err| {lse_err:.2e}')
+        log('kernels', t0, f'patch_attention_backward {shape} {name}: route {route}, '
+            f'max|err|/max|value| {err:.2e} over every tiling, two calls bit-identical; lse '
+            f'max|err| {lse_err:.2e}')
+    if dtype == torch.bfloat16:   # views that break TMA's 16-byte rule: the wrapper copies them
+        R, H, K, d = 2, 3, 100, 32
+        q, k, v, g = (torch.randn((R, H, K, d + 4), generator=gen).to('cuda', dtype)[..., :d]
+                      for _ in range(4))
+        lse = torch.empty((R, H, K), device='cuda')
+        o = kattn.patch_attention(q, k, v, d ** -0.5, lse=lse)
+        got = kattn.patch_attention_backward(q, k, v, o, g, d ** -0.5, lse=lse)
+        ref = kattn.patch_attention_backward_reference(q, k, v, g, d ** -0.5)
+        errs = [float((x.float() - y.float()).abs().max() / y.float().abs().max())
+                for x, y in zip(got, ref)]
+        if not max(errs) <= tol:
+            raise AssertionError(f'patch_attention_backward on [R, H, K, d + 4][..., :d] views '
+                                 f'{(R, H, K, d)}: max |err| / max |value| {errs} > {tol}')
+        log('kernels', t0, f'patch_attention_backward on views with 72-byte rows {(R, H, K, d)} '
+            f'{name}: route {kattn.backward_route(K, d, dtype)}, max|err|/max|value| '
+            f'{max(errs):.2e}')
     return {'name': 'patch_attention_bwd' + ('' if dtype == torch.float32 else '_bf16'),
             'route': 'cuda',
-            'source': 'pcd_reg_hregnet_torch/csrc/attention_bwd.cu',
+            'source': 'pcd_reg_hregnet_torch/csrc/attention_bwd' + (
+                '.cu' if dtype == torch.float32 else '_bf16.cu'),
             'replaces': 'pcd_reg_hregnet_tpu/ops/pallas/attention.py:93',
             'max_abs_err': max_err, 'bound_by': max(by, key=by.get), **tot}
 

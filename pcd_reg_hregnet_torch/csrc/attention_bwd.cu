@@ -17,9 +17,13 @@
 // fixed order, with no atomics on values.
 //
 // bf16 (the JAX `_bwd` on bf16 inputs: f32 inside, the results cast back):
-// the same kernel, templated on the element type, with every product one
-// mma.sync.m16n8k16.bf16 accumulating in f32 in place of the three tf32
-// ones.  P and dS are rounded to bf16 only as the operands of the products
+// attention_bwd_bf16.cu, a kernel designed for Hopper's wgmma and TMA, takes
+// the shapes it can (d a multiple of 8 up to 128, K up to 512, where its
+// shared memory fits: every shape of the train step;
+// ops/kernels/attention.py::backward_route).  This file's bf16
+// instantiations take the rest: the same kernel, templated on the element
+// type, with every product one mma.sync.m16n8k16.bf16 accumulating in f32
+// in place of the three tf32 ones.  P and dS are rounded to bf16 only as the operands of the products
 // that take them (FlashAttention-2's rounding); the scores, p, dS, D =
 // rowsum(g * o) from the bf16 g and o, and every sum stay f32.  Tiles and
 // the staged dS^T hold bf16 (rows padded by 16 bytes), so a block needs
@@ -35,11 +39,12 @@
 // production K = 128 and 64.  The design:
 // - Products on mma.sync.m16n8k8.tf32, each operand split as hi + lo and
 //   lo*hi, hi*lo, hi*hi accumulated in f32, as K3 runs them
-//   (tf32_tiles.cuh).  mma.sync and not wgmma: a warp's tiles here are 16
+//   (tf32_tiles.cuh).  In f32, mma.sync and not wgmma: a warp's tiles here are 16
 //   rows by 8-64 columns at depths of 8-128, below wgmma's 64-row tile and
 //   the depth at which its asynchronous issue pays for the shared-memory
 //   operand layout it needs; the three split products triple the work
-//   either way.
+//   either way.  (In bf16 each product is one mma, and wgmma pays:
+//   attention_bwd_bf16.cu.)
 // - Five products, not seven: the forward's log-sum-exp gives p = exp2(s
 //   * scale * log2 e - lse * log2 e) directly, with no online rescale and
 //   no second pass over the keys.

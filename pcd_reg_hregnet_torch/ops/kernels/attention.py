@@ -4,9 +4,13 @@ plain versions, and the autograd Function that joins them.
 K3 replaces `pcd_reg_hregnet_tpu/ops/pallas/attention.py::_attn_kernel`;
 the kernel is `csrc/attention.cu`, a tiled flash kernel on the tensor cores
 (3xTF32 in f32, bf16 mma in bf16).  K3b replaces that file's `_bwd` (the
-`custom_vjp` backward); the kernel is `csrc/attention_bwd.cu`, a one-launch
-FlashAttention-2 backward on the tensor cores (3xTF32 in f32, bf16 mma in
-bf16) that takes each query row's log-sum-exp from the forward.  Layout is the JAX
+`custom_vjp` backward) and takes each query row's log-sum-exp from the
+forward: in f32 `csrc/attention_bwd.cu`, a one-launch FlashAttention-2
+backward on 3xTF32 `mma.sync`; in bf16 `csrc/attention_bwd_bf16.cu`, a
+FlashAttention-3-shaped backward on `wgmma` fed by TMA (the "wgmma"
+route), and attention_bwd.cu's bf16 `mma.sync` instantiations for the
+shapes it does not take (the "mma" route: d not a multiple of 8, d > 128,
+K > 512, or a block past 227 KB of shared memory).  Layout is the JAX
 function's: q, k, v [R, H, K, d] -> out [R, H, K, d] in q's dtype, softmax
 in f32.  Both kernels take f32 or bf16, any K and d and any strides with
 a contiguous last dim; `plan` is K3's tiling and `plan_backward` K3b's.
@@ -39,6 +43,13 @@ MIN_UNSPLIT = 64             # fewer blocks than this take the key split (the sw
 BWD_TILES = ((64, 1), (64, 2), (32, 2), (32, 4), (16, 4))
 MAX_CLUSTER = 8              # K3b: key tiles of a (patch, head) that share dQ in a cluster
 MIN_BWD_BLOCKS = 96          # K3b: fewer blocks than this take smaller key tiles (the sweep)
+# K3b in bf16 on wgmma (csrc/attention_bwd_bf16.cu): keys a block holds (one
+# consumer warpgroup), query rows per streamed tile, ring stages, threads
+# (the warpgroup and a producer warp)
+WGMMA_KEYS = 64
+WGMMA_ROWS = 64
+WGMMA_STAGES = 3             # (2 at d > 64)
+WGMMA_THREADS = 160
 SM_SMEM = 233472             # shared memory of an H100 SM; a block holds 1 KB more than it asks
 _NO_CONTEXT = contextlib.nullcontext()
 
@@ -292,7 +303,40 @@ class BackwardPlan:
     slices: int   # blocks along d: ceil(d / 128) when d > 128, else 1
     smem: int     # dynamic shared memory bytes of a block
     grid: tuple   # (R * H * ceil(K / bn), slices)
-    threads: int  # 32 * bn / 16 * qs
+    threads: int  # 32 * bn / 16 * qs; WGMMA_THREADS on the wgmma route
+    route: str = 'mma'   # 'mma': csrc/attention_bwd.cu; 'wgmma': csrc/attention_bwd_bf16.cu
+
+
+def _wgmma_plan(K: int, d: int):
+    """(dp, stages, smem) of K3b's bf16 wgmma kernel at (K, d), or None
+    where it does not take the shape (`pcdreg_attention_bwd_bf16_plan`
+    computes the same): d a multiple of 8 up to 128 (TMA's 16-byte rows),
+    at most `MAX_CLUSTER` key tiles, the block's shared memory (K and V,
+    the ring of Q, G and O tiles with each row's lse and D, two dS^T, the f32
+    dQ partial of every query row, the barriers, 1 KB of alignment) within
+    `MAX_SMEM`."""
+    if d % 8 or d > WIDE or -(-K // WGMMA_KEYS) > MAX_CLUSTER:
+        return None
+    dp = padded_width(d, torch.bfloat16)
+    ntq = -(-K // WGMMA_ROWS)
+    stages = min(WGMMA_STAGES if dp <= 64 else 2, ntq)
+    tile = WGMMA_KEYS * dp * 2
+    smem = (2 * tile + 3 * stages * tile + 2 * WGMMA_KEYS * WGMMA_ROWS * 2
+            + 2 * stages * WGMMA_ROWS * 4 + ntq * WGMMA_ROWS * (dp + 4) * 4
+            + (1 + 3 * stages) * 8 + 1024)
+    return (dp, stages, smem) if smem <= MAX_SMEM else None
+
+
+def backward_route(K: int, d: int, dtype: torch.dtype) -> str:
+    """The kernel that takes K3b at (K, d) in `dtype`, by shape alone:
+    'wgmma' (bf16 shapes `_wgmma_plan` takes) or 'mma'."""
+    return 'wgmma' if dtype == torch.bfloat16 and _wgmma_plan(K, d) else 'mma'
+
+
+def backward_tilings(K: int, d: int, dtype: torch.dtype) -> tuple:
+    """The block tilings `plan_backward(..., tile=)` takes at (K, d): the
+    mma route's `BWD_TILES`; none on the wgmma route, which has one."""
+    return BWD_TILES if backward_route(K, d, dtype) == 'mma' else ()
 
 
 def plan_backward(R: int, H: int, K: int, d: int, tile: Optional[tuple] = None,
@@ -300,7 +344,13 @@ def plan_backward(R: int, H: int, K: int, d: int, tile: Optional[tuple] = None,
     """The tiling of `patch_attention_backward` over [R, H, K, d] in `dtype`
     on a card with `sms` multiprocessors.
 
-    `tile` is one of `BWD_TILES`, (bn, qs).  Without it (the choice
+    bf16 shapes the wgmma kernel takes (`backward_route`) have one tiling:
+    blocks of `WGMMA_KEYS` keys, one cluster per (patch, head), query tiles
+    of `WGMMA_ROWS` rows through a ring of up to `WGMMA_STAGES`; `tile`
+    must be None there.
+
+    Every other shape takes the mma route, where `tile` is one of
+    `BWD_TILES`, (bn, qs).  Without it (the choice
     follows the sweep of `chip_smoke.py` on an H100, PERF.md): of the key
     tiles whose blocks of a (patch, head) fit one cluster, the largest that
     gives at least `MIN_BWD_BLOCKS` (scaled to `sms`) blocks, else the
@@ -310,6 +360,14 @@ def plan_backward(R: int, H: int, K: int, d: int, tile: Optional[tuple] = None,
     fits in a cluster (K > 512, d > 128) take (64, 2) and the device-memory
     dQ path.
     """
+    if backward_route(K, d, dtype) == 'wgmma':
+        if tile is not None:
+            raise ValueError(f'patch_attention_backward: bf16 at K={K} d={d} runs on the '
+                             f'wgmma kernel, which has no tiling {tile}')
+        dp, stages, smem = _wgmma_plan(K, d)
+        ntk = -(-K // WGMMA_KEYS)
+        return BackwardPlan(dp, WGMMA_KEYS, 1, WGMMA_ROWS, stages, ntk, 1, smem,
+                            (R * H * ntk, 1), WGMMA_THREADS, 'wgmma')
     wide = d > WIDE
     dp = WIDE if wide else padded_width(d, dtype)
     es = 4 if dtype == torch.float32 else 2
@@ -371,20 +429,30 @@ def _backward_args(shape: tuple, dtype: torch.dtype, strides: tuple, tile: Optio
     if R * H * -(-K // 16) >= 2 ** 31:
         raise ValueError(f'patch_attention_backward kernel: R*H*ceil(K/16) must be '
                          f'< 2**31, got shape {shape}')
-    if tile is not None and tile not in BWD_TILES:
-        raise ValueError(f'patch_attention_backward: no kernel for tiling {tile} (one of '
-                         f'{BWD_TILES})')
+    if tile is not None and tile not in backward_tilings(K, d, dtype):
+        raise ValueError(f'patch_attention_backward: no kernel for tiling {tile} at K={K} '
+                         f'd={d} {dtype} (one of {backward_tilings(K, d, dtype)})')
     p = plan_backward(R, H, K, d, tile, _sm_count(dev), dtype)
+    if p.route == 'wgmma':   # inputs whose strides break TMA's 16-byte rule are copied
+        params = (ctypes.c_longlong * 28)(*(x for st in strides for x in st[:3]), *shape)
+        return p, params, tuple(_tma_strides(st, shape) for st in strides[:5])
     params = (ctypes.c_longlong * 31)(*(x for st in strides for x in st[:3]), *shape, p.bn,
                                       p.qs, _DTYPE_CODES[dtype])
-    return p, params
+    return p, params, None
+
+
+def _tma_strides(stride: tuple, shape: tuple) -> bool:
+    """Every stride of dims R, H, K (of size > 1) is a positive whole 16
+    bytes (bf16): what a TMA tensor map of the view needs, beside a 16-byte
+    aligned start (the last dim is contiguous)."""
+    return all(s > 0 and s * 2 % 16 == 0 for s, n in zip(stride[:3], shape[:3]) if n > 1)
 
 
 def _launch_backward(q, k, v, o, g, scale: float, out, lse, tile=None):
     """Launch K3b: (dq, dk, dv) into `out` (new contiguous tensors when
-    None), with the block tiling `tile` (`plan_backward`'s by default);
-    `lse` is the forward's log-sum-exp of each query row.  Counts
-    nothing."""
+    None), on the kernel `backward_route` names for the shape, with the
+    block tiling `tile` (`plan_backward`'s by default); `lse` is the
+    forward's log-sum-exp of each query row.  Counts nothing."""
     for name, t in (('k', k), ('v', v), ('o', o), ('g', g), *zip(
             ('dq', 'dk', 'dv'), out or ())):
         if (t.shape != q.shape or t.dtype != q.dtype or t.get_device() != q.get_device()):
@@ -399,8 +467,24 @@ def _launch_backward(q, k, v, o, g, scale: float, out, lse, tile=None):
         out = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
     ts = (q, k, v, o, g, *out)
     dev = q.get_device()
-    p, params = _backward_args(tuple(q.shape), q.dtype, tuple(t.stride() for t in ts), tile,
-                               dev)
+    p, params, tma = _backward_args(tuple(q.shape), q.dtype, tuple(t.stride() for t in ts),
+                                    tile, dev)
+    if p.route == 'wgmma':
+        ptrs = [t.data_ptr() for t in ts]
+        if not all(ok and x % 16 == 0 for ok, x in zip(tma, ptrs)):
+            ts = tuple(t if i >= 5 or (tma[i] and ptrs[i] % 16 == 0)
+                       else t.clone(memory_format=torch.contiguous_format)
+                       for i, t in enumerate(ts))
+            p, params, tma = _backward_args(tuple(q.shape), q.dtype,
+                                            tuple(t.stride() for t in ts), tile, dev)
+            ptrs = [t.data_ptr() for t in ts]
+        lib = build.library()
+        with torch.cuda.device(dev) if dev != torch.cuda.current_device() else _NO_CONTEXT:
+            err = lib.lib.pcdreg_patch_attention_bwd_bf16(
+                *ptrs[:5], lse.data_ptr(), *ptrs[5:], params, float(scale),
+                torch.cuda.current_stream(dev).cuda_stream)
+        lib.check(err, 'pcdreg_patch_attention_bwd_bf16')
+        return out
     R, H, K, d = q.shape
     part = ticket = None
     if not p.cluster:   # the dQ partials meet in device memory

@@ -85,6 +85,12 @@ class KernelLibrary:
         lib.pcdreg_attention_bwd_plan.restype = ci
         lib.pcdreg_attention_bwd_tiling.argtypes = [ci, pi, pi]
         lib.pcdreg_attention_bwd_tiling.restype = ci
+        lib.pcdreg_patch_attention_bwd_bf16.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),
+            ctypes.c_float, vp]
+        lib.pcdreg_patch_attention_bwd_bf16.restype = ci
+        lib.pcdreg_attention_bwd_bf16_plan.argtypes = [ci, ci, pi, pi, pi, pi]
+        lib.pcdreg_attention_bwd_bf16_plan.restype = ci
         lib.pcdreg_error_string.argtypes = [ci]
         lib.pcdreg_error_string.restype = ctypes.c_char_p
 

@@ -16,21 +16,35 @@ checkout's package it times that checkout's kernel the same way (the A/B
 of PERF.md).  `chip_smoke.py` times K3 with the same two functions at the
 same shapes.
 
-With `--backward`, for each f32 shape at B=8 and B=1: the backward of
+With `--backward`, for each shape at B=8 and B=1, f32 and bf16 (or the
+dtypes of `--dtypes`): the backward of
 `ops.kernels.attention.PatchAttentionFunction` alone (`torch.autograd.grad`
 of a forward kept with `retain_graph`, which launches K3b and nothing
 else), as device time (`ms`) and back to back (`call_ms`), and forward and
-backward together (`fwd_bwd_ms`, `fwd_bwd_call_ms`); then one line of
-per-B=8-train-step sums (each shape runs twice per tower).  It uses only
-`PatchAttentionFunction.apply(qkv, scale)` and autograd, so copied into
-another checkout it times that checkout's backward the same way (the A/B
-of PERF.md), whatever arguments its kernels take.  Needs a CUDA device.
+backward together (`fwd_bwd_ms`, `fwd_bwd_call_ms`); the host time of one
+backward issued alone after a synchronize (`host_ms`, the median wall
+time of 10 x `reps` calls), and the same of the public
+`patch_attention_backward` alone on the same views (`wrapper_host_ms`);
+and the gradient's
+largest error against the plain backward's, over its largest value
+(`max_err`); then one line per dtype of per-B=8-train-step sums (each
+shape runs twice per tower).  `chip_smoke.py` times SDPA's backward at
+the same shapes.  It uses only `PatchAttentionFunction.apply(qkv,
+scale)`, autograd, `patch_attention_backward_reference` and the public
+`patch_attention(..., lse=)` and `patch_attention_backward(q, k, v, o, g,
+scale, out=, lse=)`, so copied into another checkout it times that
+checkout's backward the same way (the A/B of PERF.md), whatever arguments
+its kernels take.  Needs a CUDA device.
+
+    python3 -m pcd_reg_hregnet_torch.time_attention --backward --dtypes bfloat16
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import json
+import statistics
+import time
 
 import torch
 
@@ -88,10 +102,28 @@ def call_ms(fn, reps: int, stream=None) -> float:
     return start.elapsed_time(end) / reps
 
 
-def backward_times(R: int, H: int, K: int, d: int, gen: torch.Generator, reps: int) -> dict:
-    """Times of `PatchAttentionFunction`'s backward at [R, H, K, d] (f32)."""
-    qkv = torch.randn((R, K, 3, H, d), generator=gen).cuda().requires_grad_()
-    g = torch.randn((R, K, H, d), generator=gen).cuda()
+def host_ms(fn, reps: int, stream=None) -> float:
+    """Host time of one `fn()` in ms: the median wall time of `reps` calls,
+    each issued alone after a synchronize (so no queue of earlier work
+    slows it)."""
+    wall = []
+    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+        fn()
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter_ns()
+            fn()
+            wall.append(time.perf_counter_ns() - t)
+        torch.cuda.synchronize()
+    return statistics.median(wall) * 1e-6
+
+
+def backward_times(R: int, H: int, K: int, d: int, gen: torch.Generator, reps: int,
+                   dtype: torch.dtype = torch.float32) -> dict:
+    """Times of `PatchAttentionFunction`'s backward at [R, H, K, d] in
+    `dtype`, and its gradient's error."""
+    qkv = torch.randn((R, K, 3, H, d), generator=gen).to('cuda', dtype).requires_grad_()
+    g = torch.randn((R, K, H, d), generator=gen).to('cuda', dtype)
     s = d ** -0.5
     side = torch.cuda.Stream()   # autograd runs the backward on the forward's stream
     side.wait_stream(torch.cuda.current_stream())
@@ -103,8 +135,22 @@ def backward_times(R: int, H: int, K: int, d: int, gen: torch.Generator, reps: i
 
     def both():
         return torch.autograd.grad(kattn.PatchAttentionFunction.apply(qkv, s), qkv, g)
+
+    q, k, v = (t.detach() for t in kattn.unpack_qkv(qkv))
+    ref = torch.stack(kattn.patch_attention_backward_reference(q, k, v, g.transpose(1, 2), s),
+                      0).permute(1, 3, 0, 2, 4).float()   # [R, K, 3, H, d]
+    (got,) = bwd()
+    err = float((got.float() - ref).abs().max() / ref.abs().max())
+    host = host_ms(bwd, 10 * reps, side)
+    lse = torch.empty((R, H, K), device='cuda')
+    o = kattn.patch_attention(q, k, v, s, lse=lse)
+    dqkv = torch.empty_like(qkv)
+    wrapper = host_ms(lambda: kattn.patch_attention_backward(
+        q, k, v, o, g.transpose(1, 2), s, out=kattn.unpack_qkv(dqkv), lse=lse), 10 * reps)
     return {'ms': device_ms(bwd, reps, side), 'call_ms': call_ms(bwd, reps, side),
-            'fwd_bwd_ms': device_ms(both, reps), 'fwd_bwd_call_ms': call_ms(both, reps)}
+            'host_ms': host, 'wrapper_host_ms': wrapper,
+            'fwd_bwd_ms': device_ms(both, reps), 'fwd_bwd_call_ms': call_ms(both, reps),
+            'max_err': err}
 
 
 def main(argv=None) -> int:
@@ -112,21 +158,26 @@ def main(argv=None) -> int:
     ap.add_argument('--reps', type=int, default=20)
     ap.add_argument('--backward', action='store_true',
                     help='time the backward (K3b) through PatchAttentionFunction')
+    ap.add_argument('--dtypes', nargs='+', default=['float32', 'bfloat16'],
+                    choices=['float32', 'bfloat16'], help='dtypes of --backward')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('time_attention needs a CUDA device')
     gen = torch.Generator().manual_seed(0)
     if args.backward:
-        step = {}
         with fp32_numerics():
-            for B in (8, 1):
-                for R, H, K, d in shapes(B):
-                    t = backward_times(R, H, K, d, gen, args.reps)
-                    print(json.dumps({'B': B, 'K': K, 'd': d, 'H': H, **t}), flush=True)
-                    if B == 8:   # two PTv3 blocks per stage, two towers
-                        for key, x in t.items():
-                            step[key] = step.get(key, 0.0) + 4 * x
-        print(json.dumps({'per_B8_step': step}), flush=True)
+            for name in args.dtypes:
+                dtype, step = getattr(torch, name), {}
+                for B in (8, 1):
+                    for R, H, K, d in shapes(B):
+                        t = backward_times(R, H, K, d, gen, args.reps, dtype)
+                        print(json.dumps({'B': B, 'K': K, 'd': d, 'H': H, 'dtype': name, **t}),
+                              flush=True)
+                        if B == 8:   # two PTv3 blocks per stage, two towers
+                            for key, x in t.items():
+                                if key != 'max_err':
+                                    step[key] = step.get(key, 0.0) + 4 * x
+                print(json.dumps({'per_B8_step': step, 'dtype': name}), flush=True)
         return 0
     with fp32_numerics():
         for B in (8, 1):

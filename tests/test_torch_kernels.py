@@ -385,3 +385,130 @@ class TestAttentionBackwardPlan:
             lse = lse.double()
         with pytest.raises(ValueError):
             kattn._launch_backward(q, q, q, q, q, 1.0, None, lse, tile)
+
+
+# plan_backward's f32 plans at the train step's shapes, frozen: the bf16
+# route leaves the f32 tiling as it was
+# (dp, bn, qs, bm, stages, cluster, slices, smem, grid, threads)
+F32_BWD_PLANS = {
+    (32, 2, 256, 32): (32, 64, 1, 64, 2, 4, 1, 111616, (256, 1), 128),
+    (32, 4, 256, 16): (16, 64, 1, 64, 2, 4, 1, 70656, (512, 1), 128),
+    (32, 8, 256, 8): (8, 64, 1, 64, 2, 4, 1, 50176, (1024, 1), 128),
+    (32, 2, 128, 64): (64, 64, 2, 64, 2, 2, 1, 157696, (128, 1), 256),
+    (32, 4, 128, 32): (32, 64, 1, 64, 2, 2, 1, 92160, (256, 1), 128),
+    (32, 8, 128, 16): (16, 64, 1, 64, 2, 2, 1, 59392, (512, 1), 128),
+    (32, 2, 64, 128): (128, 32, 4, 32, 2, 2, 1, 207872, (128, 1), 256),
+    (32, 4, 64, 64): (64, 64, 2, 64, 2, 1, 1, 139776, (128, 1), 256),
+    (32, 8, 64, 32): (32, 64, 1, 64, 2, 1, 1, 82432, (256, 1), 128),
+    (4, 2, 256, 32): (32, 32, 2, 64, 2, 8, 1, 93696, (64, 1), 128),
+    (4, 4, 256, 16): (16, 32, 2, 64, 2, 8, 1, 56832, (128, 1), 128),
+    (4, 8, 256, 8): (8, 64, 1, 64, 2, 4, 1, 50176, (128, 1), 128),
+    (4, 2, 128, 64): (64, 16, 4, 64, 2, 8, 1, 118528, (64, 1), 128),
+    (4, 4, 128, 32): (32, 16, 4, 64, 2, 8, 1, 65280, (128, 1), 128),
+    (4, 8, 128, 16): (16, 32, 2, 64, 2, 4, 1, 45568, (128, 1), 128),
+    (4, 2, 64, 128): (128, 16, 4, 32, 2, 4, 1, 121088, (32, 1), 128),
+    (4, 4, 64, 64): (64, 16, 4, 64, 2, 4, 1, 100608, (64, 1), 128),
+    (4, 8, 64, 32): (32, 16, 4, 64, 2, 4, 1, 55552, (128, 1), 128),
+}
+BWD_KS = (1, 33, 64, 100, 128, 256, 512, 513, 1024)
+BWD_DS = (1, 5, 8, 16, 32, 64, 128, 129, 300)
+
+
+class TestAttentionBackwardRoutes:
+    """K3b's two kernels: f32 and the bf16 shapes it cannot take on
+    `csrc/attention_bwd.cu` ("mma"), the bf16 train step's shapes on
+    `csrc/attention_bwd_bf16.cu` ("wgmma"); the route follows the shape
+    alone (the card checks `pcdreg_attention_bwd_bf16_plan` against
+    `plan_backward` in chip_smoke.py)."""
+
+    @pytest.mark.parametrize('shape', sorted(F32_BWD_PLANS))
+    def test_f32_plans_unchanged(self, shape):
+        p = kattn.plan_backward(*shape)
+        assert p.route == 'mma'
+        assert (p.dp, p.bn, p.qs, p.bm, p.stages, p.cluster, p.slices, p.smem, p.grid,
+                p.threads) == F32_BWD_PLANS[shape]
+
+    def test_wgmma_constants_match_cuda_source(self):
+        src = (Path(kattn.__file__).resolve().parents[2] / 'csrc'
+               / 'attention_bwd_bf16.cu').read_text()
+        consts = dict(re.findall(r'constexpr int (k\w+) = (\d+);', src))
+        assert int(consts['kKeys']) == kattn.WGMMA_KEYS
+        assert int(consts['kRows']) == kattn.WGMMA_ROWS
+        assert int(consts['kStages']) == kattn.WGMMA_STAGES
+        assert int(consts['kMaxCluster']) == kattn.MAX_CLUSTER
+        assert int(consts['kConsumers']) + 32 == kattn.WGMMA_THREADS
+
+    @pytest.mark.parametrize('K', BWD_KS)
+    def test_bf16_routes_cover_k_and_d(self, K):
+        for d in BWD_DS:
+            p = kattn.plan_backward(3, 2, K, d, dtype=torch.bfloat16)
+            assert p.route == kattn.backward_route(K, d, torch.bfloat16)
+            ntk = p.grid[0] // 6
+            assert p.grid[0] == 6 * ntk and p.bn * (ntk - 1) < K <= p.bn * ntk
+            assert p.slices * p.dp >= d and (p.slices - 1) * p.dp < d
+            assert 0 < p.smem <= 232448 and p.stages >= 1
+            if p.route == 'wgmma':
+                assert d % 8 == 0 and d <= kattn.WIDE and p.dp >= d and p.slices == 1
+                assert p.cluster == ntk <= kattn.MAX_CLUSTER and p.bm == kattn.WGMMA_ROWS
+                assert p.stages == min(kattn.WGMMA_STAGES if p.dp <= 64 else 2, -(-K // p.bm))
+                assert p.threads == kattn.WGMMA_THREADS
+                assert kattn.backward_tilings(K, d, torch.bfloat16) == ()
+            else:   # every tiling of the mma route covers the shape
+                assert d % 8 or d > kattn.WIDE or K > kattn.MAX_CLUSTER * kattn.WGMMA_KEYS \
+                    or kattn._wgmma_plan(K, d) is None
+                for tile in kattn.backward_tilings(K, d, torch.bfloat16):
+                    q = kattn.plan_backward(3, 2, K, d, tile, dtype=torch.bfloat16)
+                    assert (q.bn, q.qs) == tile and q.route == 'mma'
+                    assert q.bn * (q.grid[0] // 6) >= K and q.smem <= 232448
+
+    def test_production_shapes_take_wgmma(self):
+        for R, H, K, d in PRODUCTION_SHAPES:
+            p = kattn.plan_backward(R, H, K, d, dtype=torch.bfloat16)
+            assert p.route == 'wgmma' and 1 <= p.cluster <= kattn.MAX_CLUSTER
+            assert p.grid == (R * H * -(-K // kattn.WGMMA_KEYS), 1)
+
+    @pytest.mark.parametrize('shape,cluster,stages', [((1, 1, 1, 8), 1, 1),
+                                                      ((2, 2, 33, 32), 1, 1),
+                                                      ((2, 2, 512, 32), 8, 3),
+                                                      ((2, 2, 300, 64), 5, 3)])
+    def test_opened_wgmma_shapes_reach_their_cases(self, shape, cluster, stages):
+        # chip_smoke.py holds these on the card to the wgmma kernel's K = 1
+        # case, a ragged lone key tile and clusters of 8 and 5 key tiles
+        import chip_smoke
+        assert shape in chip_smoke.ATTN_OPENED_WGMMA
+        p = kattn.plan_backward(*shape, dtype=torch.bfloat16)
+        assert (p.route, p.cluster, p.stages) == ('wgmma', cluster, stages)
+
+    def test_route_depends_on_shape_alone(self):
+        for K in BWD_KS:
+            for d in BWD_DS:
+                routes = {kattn.plan_backward(R, H, K, d, sms=sms, dtype=dtype).route
+                          for R, H in ((1, 1), (32, 8)) for sms in (66, 132)
+                          for dtype in (torch.bfloat16,)}
+                assert routes == {kattn.backward_route(K, d, torch.bfloat16)}
+                assert kattn.plan_backward(2, 2, K, d).route == 'mma'   # f32
+
+    def test_wgmma_route_refuses_a_tiling_before_building(self, monkeypatch):
+        def no_build():
+            raise AssertionError('built before validating')
+        monkeypatch.setattr(kbuild, 'library', no_build)
+        with pytest.raises(ValueError):
+            kattn.plan_backward(2, 2, 64, 32, (64, 1), dtype=torch.bfloat16)
+        q = torch.zeros(1, 1, 64, 32, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            kattn._launch_backward(q, q, q, q, q, 1.0, None, torch.zeros(1, 1, 64), (64, 1))
+
+    def test_model_views_meet_tma_rules_and_odd_views_do_not(self):
+        # the views PatchAttentionFunction hands K3b at every production
+        # shape need no copy; a view whose rows break 16 bytes does
+        for R, H, K, d in PRODUCTION_SHAPES:
+            qkv = torch.empty((R, K, 3, H, d), dtype=torch.bfloat16)
+            grad = torch.empty((R, K, H, d), dtype=torch.bfloat16).transpose(1, 2)
+            for t in (*kattn.unpack_qkv(qkv), grad):
+                assert kattn._tma_strides(t.stride(), t.shape)
+        odd = torch.empty((2, 3, 64, 9), dtype=torch.bfloat16)[..., :8]
+        assert not kattn._tma_strides(odd.stride(), odd.shape)
+        expanded = torch.zeros((1, 1, 64, 8), dtype=torch.bfloat16).expand(2, 3, 64, 8)
+        assert not kattn._tma_strides(expanded.stride(), expanded.shape)
+        one = torch.empty((1, 1, 64, 8), dtype=torch.bfloat16)   # dims of size 1 are never stepped
+        assert kattn._tma_strides(one.stride(), one.shape)

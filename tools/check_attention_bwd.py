@@ -2,10 +2,11 @@
 call before the full `chip_smoke.py`: build (on failure only the
 compiler's errors, which the register reports of every kernel would
 otherwise push out of a short log), each K3b kernel's registers and
-spills, then `chip_smoke.py`'s K3b phase in f32 and in bf16 (its tilings
+spills (attention_bwd.cu's and attention_bwd_bf16.cu's), then
+`chip_smoke.py`'s K3b phase in f32 and in bf16 (its routes and tilings
 against the compiled ones, every shape of the train step and every opened
-shape in every tiling against the plain backward, twice, bit-identical,
-with device times and the sweep of tilings), one backward through
+shape in every tiling of its route against the plain backward, twice,
+bit-identical, with device times and the sweep of tilings), one backward through
 `PatchAttentionFunction` in each dtype against autograd of the plain
 forward, and what
 the log-sum-exp costs the forward: K3's device time per B=8 train step
