@@ -3,7 +3,7 @@ package's `eval` sub-command).
 
     python -m pcd_reg_hregnet_torch.evaluate --weights port_assets/r5_v11_knn_best_rre.npz \\
         --split test [--icp point_to_plane] [--results out.json] [--device cpu] \\
-        [--compute-dtype bfloat16]
+        [--compute-dtype bfloat16] [--dataset man --data-path /data/truckscenes]
 
 `--weights` takes any exported checkpoint (default the flagship, reg_v11;
 `port_assets/r4_v6_50_best_rre.npz` is reg_v6, model_v2;
@@ -12,8 +12,11 @@ feats pretrain) or a train checkpoint directory the port wrote
 (`runs/torch/ckpt/best_rre`).  The
 configuration is the checkpoint's own (`meta.json`), with
 `--compute-dtype` overriding the one it records (`bfloat16` serves an
-f32-trained checkpoint in the JAX package's bf16 policy); runs on the card
-unless `--device cpu`.  Prints the summary of the last layer.
+f32-trained checkpoint in the JAX package's bf16 policy), and `--dataset`
+/ `--data-path` the data it records (`man`: a MAN TruckScenes tree,
+`audi`: an A2D2 tree; a split's twist table missing under the path is
+drawn by the port and written there).  Runs on the card unless `--device
+cpu`.  Prints the summary of the last layer.
 """
 from __future__ import annotations
 
@@ -37,6 +40,10 @@ def main(argv=None) -> int:
     ap.add_argument('--icp-iters', type=int, default=30)
     ap.add_argument('--results', default=None, help='write the results JSON here')
     ap.add_argument('--device', default='cuda')
+    ap.add_argument('--dataset', default=None, choices=('man', 'audi', 'synthetic'))
+    ap.add_argument('--data-path', default=None,
+                    help='root of the dataset\'s files (TruckScenes, A2D2) and of its twist '
+                         'tables')
     ap.add_argument('--compute-dtype', default=None, choices=('float32', 'bfloat16'),
                     help='activation dtype of the compute path (for this model bfloat16 '
                          'is mainly an activation-memory knob: the hot spots are gathers '
@@ -47,6 +54,9 @@ def main(argv=None) -> int:
     if args.compute_dtype is not None:
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, compute_dtype=args.compute_dtype))
+    data = {k: v for k, v in (('dataset', args.dataset), ('path', args.data_path))
+            if v is not None}
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **data))
     t = time.perf_counter()
     out = evaluate(cfg, args.weights, split=args.split, icp=args.icp,
                    icp_iters=args.icp_iters, results_path=args.results, device=args.device)

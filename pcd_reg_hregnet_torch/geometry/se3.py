@@ -82,3 +82,21 @@ def inverse(T: torch.Tensor) -> torch.Tensor:
 def compose(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
     """Ta @ Tb (apply Tb first, then Ta)."""
     return torch.matmul(Ta, Tb)
+
+
+def adjoint(T: torch.Tensor) -> torch.Tensor:
+    """Adjoint of T as a [..., 6, 6] matrix acting on twists [w, v]:
+    Ad(T) = [[R, 0], [[t]x R, R]]."""
+    R, t = unpack(T)
+    top = torch.cat([R, torch.zeros_like(R)], dim=-1)
+    bot = torch.cat([so3.hat(t) @ R, R], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def ad(x: torch.Tensor) -> torch.Tensor:
+    """Little adjoint of a twist [..., 6] = [w, v]:
+    ad(x) = [[[w]x, 0], [[v]x, [w]x]]."""
+    wx, vx = so3.hat(x[..., :3]), so3.hat(x[..., 3:])
+    top = torch.cat([wx, torch.zeros_like(wx)], dim=-1)
+    bot = torch.cat([vx, wx], dim=-1)
+    return torch.cat([top, bot], dim=-2)

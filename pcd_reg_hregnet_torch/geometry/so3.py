@@ -6,6 +6,8 @@ in the JAX code, so a batch mixes small and ordinary angles freely.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 _SMALL = 1e-2  # switch to Taylor series below this |theta|
@@ -79,3 +81,32 @@ def log(R: torch.Tensor) -> torch.Tensor:
     theta = torch.arccos(cos_t)
     skew = 0.5 * (R - R.transpose(-1, -2))
     return vee(skew) / sinc1(theta)[..., None]
+
+
+def inverse(R: torch.Tensor) -> torch.Tensor:
+    return R.transpose(-1, -2)
+
+
+def geodesic_distance(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
+    """Angle of R1^T R2 in radians, per batch element.
+
+    atan2(sin, cos), sin from the skew part, cos from the trace: the JAX
+    package's arccos of the clipped trace loses ~sqrt(eps) of f32 near the
+    identity (~1e-4 rad), where this keeps ~1e-7, as `eval.calib_eval`'s
+    error angle does; elsewhere the two agree to f32 round-off."""
+    M = torch.matmul(R1.transpose(-1, -2), R2)
+    trace = M[..., 0, 0] + M[..., 1, 1] + M[..., 2, 2]
+    cos_t = torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0)
+    skew = torch.stack([M[..., 2, 1] - M[..., 1, 2], M[..., 0, 2] - M[..., 2, 0],
+                        M[..., 1, 0] - M[..., 0, 1]], dim=-1)
+    return torch.arctan2(0.5 * torch.linalg.norm(skew, dim=-1), cos_t)
+
+
+def random_rotation(gen: torch.Generator, batch_shape: tuple = ()) -> torch.Tensor:
+    """Random rotations [*batch_shape, 3, 3] (f32, CPU): a normal axis turned
+    by an angle uniform in [0, pi), drawn from `gen`."""
+    batch_shape = tuple(batch_shape)
+    axis = torch.randn(batch_shape + (3,), generator=gen)
+    axis = axis / (torch.linalg.norm(axis, dim=-1, keepdim=True) + 1e-12)
+    angle = torch.rand(batch_shape + (1,), generator=gen) * math.pi
+    return exp(axis * angle)

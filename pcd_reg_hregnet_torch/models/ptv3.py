@@ -1,7 +1,8 @@
-"""Encoder-only PTv3 with serialized patch attention (port of
+"""PTv3 with serialized patch attention (port of
 `pcd_reg_hregnet_tpu/models/ptv3.py`: `SerializedDepthwiseConv`, `KnnCPE`,
 `cpe_neighbors`, `PatchAttention`, `PTv3Mlp`, `PTv3Block`,
-`PointTransformerEncoder`).
+`PointTransformerEncoder`, and the full encoder-decoder
+`PointTransformerV3` with `SerializedPooling` / `SerializedUnpooling`).
 
 The attention core always goes through
 `ops.kernels.attention.PatchAttentionFunction` (kernels K3 and K3b on CUDA),
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.device import fp32_numerics
 from ..ops import serialization
 from ..ops.kernels.attention import PatchAttentionFunction
 from ..ops.neighbors import knn, knn_gather
@@ -242,3 +244,155 @@ class PointTransformerEncoder(nn.Module):
                 x = getattr(self, f'PTv3Block_{n}')(x, nbr_idx, rel)
                 n += 1
         return _take_rows(x, inverse)
+
+
+class SerializedPooling(nn.Module):
+    """Stride-s downsampling along the serialized order: a Dense projection,
+    the max of each run of s features, the mean of its xyz, BatchNorm
+    (flax momentum 0.9, eps 1e-5) and GELU.  f32 only, as the JAX module."""
+
+    def __init__(self, in_channels: int, channels: int, stride: int = 2):
+        super().__init__()
+        self.stride = stride
+        self.Dense_0 = Dense(in_channels, channels)
+        self.BatchNorm_0 = BatchNorm(channels)
+
+    def forward(self, xyz: torch.Tensor, x: torch.Tensor):
+        B, N, _ = x.shape
+        s = self.stride
+        if N % s:
+            raise ValueError(f'SerializedPooling stride {s} must divide N={N}')
+        x = self.Dense_0(x)
+        x = torch.amax(x.reshape(B, N // s, s, x.shape[-1]), dim=2)
+        xyz = torch.mean(xyz.reshape(B, N // s, s, 3), dim=2)
+        return xyz, _gelu(self.BatchNorm_0(x))
+
+
+class SerializedUnpooling(nn.Module):
+    """Undo a stride-s pooling: each pooled feature projected and repeated
+    over its run, added to the projected skip features, BatchNorm (flax
+    momentum 0.9, eps 1e-5) and GELU."""
+
+    def __init__(self, in_channels: int, skip_channels: int, channels: int, stride: int = 2):
+        super().__init__()
+        self.stride = stride
+        self.Dense_0 = Dense(in_channels, channels)
+        self.Dense_1 = Dense(skip_channels, channels)
+        self.BatchNorm_0 = BatchNorm(channels)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        up = torch.repeat_interleave(self.Dense_0(x), self.stride, dim=1)
+        return _gelu(self.BatchNorm_0(up + self.Dense_1(skip)))
+
+
+class PointTransformerV3(nn.Module):
+    """Full PTv3: embedding stem -> pooled encoder stages -> unpooled decoder
+    stages with skip connections; the blocks of a stage cycle through
+    `orders` (the reference's order shuffle).
+
+    Input xyz [B, N, 3] and feat [B, N, in_channels], N a multiple of
+    patch_size * stride ** (stages - 1) (or of the point count a stage
+    has, where that is below patch_size); output per-point features
+    [B, N, dec_channels[0]] in the input's point order.  Every attention
+    goes through `PatchAttentionFunction` (K3, K3b).  The forward runs
+    without TF32 (`core.device.fp32_numerics`); a caller that trains wraps
+    its backward in the same block.  f32 only.  The submodules carry
+    flax's names, so `utils.convert.from_flax` loads the JAX module's
+    variables strictly.  Each name in `orders` is serialized as named
+    (`serialization.ORDERS`); the JAX module's `_orders` reads every name
+    but 'hilbert' as 'z', so the two agree for the default ('z', 'hilbert').
+    """
+
+    def __init__(self, in_channels: int,
+                 enc_channels: Sequence[int] = (32, 64, 128, 256),
+                 enc_depths: Sequence[int] = (2, 2, 2, 2),
+                 enc_heads: Sequence[int] = (2, 4, 8, 16),
+                 dec_channels: Sequence[int] = (64, 64, 128),
+                 dec_depths: Sequence[int] = (2, 2, 2),
+                 dec_heads: Sequence[int] = (4, 4, 8),
+                 patch_size: int = 128, stride: int = 2, mlp_ratio: float = 4.0,
+                 grid_size: float = 0.01, orders: Sequence[str] = ('z', 'hilbert'),
+                 cpe: str = 'curve'):
+        super().__init__()
+        self.enc_depths, self.enc_heads = tuple(enc_depths), tuple(enc_heads)
+        self.dec_depths, self.dec_heads = tuple(dec_depths), tuple(dec_heads)
+        self.patch_size, self.stride = patch_size, stride
+        self.grid_size, self.orders, self.cpe = grid_size, tuple(orders), cpe
+        for o in self.orders:
+            if o not in serialization.ORDERS:
+                raise ValueError(f'unsupported serialization order: {o}')
+        self.SerializedDepthwiseConv_0 = SerializedDepthwiseConv(in_channels, 5)
+        self.Dense_0 = Dense(in_channels, enc_channels[0])
+        self.BatchNorm_0 = BatchNorm(enc_channels[0], eps=1e-2, momentum=0.01)
+        # flax names submodules in creation order: blocks numbered through
+        # the encoder and the decoder, a pooling before stages 1.., an
+        # unpooling before each decoder stage (deepest first)
+        blocks = pools = 0
+        for s, depth in enumerate(enc_depths):
+            if s > 0:
+                self.add_module(f'SerializedPooling_{pools}', SerializedPooling(
+                    enc_channels[s - 1], enc_channels[s], stride))
+                pools += 1
+            for _ in range(depth):
+                self.add_module(f'PTv3Block_{blocks}', self._block(enc_channels[s],
+                                                                   enc_heads[s], mlp_ratio))
+                blocks += 1
+        cur = enc_channels[-1]
+        for n, d in enumerate(range(len(dec_depths) - 1, -1, -1)):
+            self.add_module(f'SerializedUnpooling_{n}', SerializedUnpooling(
+                cur, enc_channels[d], dec_channels[d], stride))
+            cur = dec_channels[d]
+            for _ in range(dec_depths[d]):
+                self.add_module(f'PTv3Block_{blocks}', self._block(cur, dec_heads[d],
+                                                                   mlp_ratio))
+                blocks += 1
+
+    def _block(self, channels: int, heads: int, mlp_ratio: float) -> PTv3Block:
+        return PTv3Block(channels, heads, self.patch_size, mlp_ratio, cpe=self.cpe)
+
+    def _run_blocks(self, xyz, x, depth: int, first: int):
+        """Blocks `first`.. of a stage, block b in order b % len(orders).
+        With `cpe='knn'` the stage's kNN runs once in the input frame, and
+        each block maps it into its serialized frame: rows permute by
+        `order`, stored indices through `inverse`."""
+        table = [serialization.serialize(xyz, self.grid_size, o) for o in self.orders]
+        nbr_idx = rel = None
+        if self.cpe == 'knn':
+            nbr_idx, rel = cpe_neighbors(xyz)
+        for b in range(depth):
+            order, inverse = table[b % len(table)]
+            bi = br = None
+            if self.cpe == 'knn':
+                bi = _take_rows(torch.gather(inverse, 1, nbr_idx.reshape(
+                    nbr_idx.shape[0], -1)).reshape(nbr_idx.shape), order)
+                br = _take_rows(rel, order)
+            xs = getattr(self, f'PTv3Block_{first + b}')(_take_rows(x, order), bi, br)
+            x = _take_rows(xs, inverse)
+        return x
+
+    @fp32_numerics()
+    def forward(self, xyz: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
+        order, inverse = serialization.serialize(xyz, self.grid_size, 'z')
+        x = self.SerializedDepthwiseConv_0(_take_rows(feat, order))
+        x = _gelu(self.BatchNorm_0(self.Dense_0(x)))
+        x = _take_rows(x, inverse)
+
+        skips = []
+        block = 0
+        for s, depth in enumerate(self.enc_depths):
+            if s > 0:
+                # pool along the stage's z-order; the decoder undoes the
+                # permutation with the skip
+                o, inv = serialization.serialize(xyz, self.grid_size, 'z')
+                skips.append((xyz, x, o, inv))
+                xyz, x = getattr(self, f'SerializedPooling_{s - 1}')(
+                    _take_rows(xyz, o), _take_rows(x, o))
+            x = self._run_blocks(xyz, x, depth, block)
+            block += depth
+
+        for n, d in enumerate(range(len(self.dec_depths) - 1, -1, -1)):
+            xyz, skip, o, inv = skips.pop()
+            xs = getattr(self, f'SerializedUnpooling_{n}')(x, _take_rows(skip, o))
+            x = self._run_blocks(xyz, _take_rows(xs, inv), self.dec_depths[d], block)
+            block += self.dec_depths[d]
+        return x

@@ -9,6 +9,9 @@
              (`models/attention.py`)
 * model_v6 - PTv3 descriptor backbone (A2, the flagship)
 
+`build_ptv3` builds the full PointTransformerV3 encoder-decoder
+(`models/ptv3.py`), which no preset uses.
+
 Every preset builds in `compute_dtype` float32 or bfloat16 (the JAX
 package's bf16 policy, `models/layers.py`).  Not ported yet, so refused
 with `NotImplementedError`: `seq_axis` (`RegistrationModel`), and any
@@ -115,3 +118,15 @@ def build(name: str, *, device: str | torch.device = 'cuda', seed: int = 0,
         model.data_cfg = cfg.data
     return model.to(dev).eval()
 
+
+
+def build_ptv3(*, device: str | torch.device = 'cuda', seed: int = 0, in_channels: int = 3,
+               **kwargs) -> nn.Module:
+    """The full `PointTransformerV3` (the JAX module's defaults, `kwargs` on
+    top) with seeded flax-style weights, in eval mode on `device`.  Raises
+    without a card unless ``device='cpu'``."""
+    from .ptv3 import PointTransformerV3
+    dev = resolve_device(device)
+    model = PointTransformerV3(in_channels, **kwargs)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()

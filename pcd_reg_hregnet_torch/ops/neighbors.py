@@ -89,3 +89,31 @@ def knn_group(xyz1: torch.Tensor, xyz2: torch.Tensor,
     if features2 is not None:
         parts.append(g[..., 3:])
     return torch.cat(parts, dim=-1), knn_xyz
+
+
+def ball_query(query: torch.Tensor, database: torch.Tensor, radius: float, k: int):
+    """The k nearest database points within `radius` of each query point.
+
+    Ascending by distance, equal distances lower index first (as `knn`).
+    A row with fewer than k in-radius points repeats its first valid
+    neighbour; a row with none gets index 0.  Returns idx [B, M, k] int64
+    and mask [B, M, k] bool (True = within radius).
+    """
+    d2 = pairwise_sqdist(query, database)
+    r = torch.tensor(radius, dtype=d2.dtype)
+    masked = torch.where(d2 <= r * r, d2, torch.full_like(d2, float('inf')))
+    idx = _select_ties(masked, k)
+    mask = torch.isfinite(torch.gather(masked, -1, idx))
+    first = torch.where(mask[..., :1], idx[..., :1], torch.zeros_like(idx[..., :1]))
+    return torch.where(mask, idx, first), mask
+
+
+def three_nn_interpolate(query: torch.Tensor, database: torch.Tensor,
+                         features: torch.Tensor) -> torch.Tensor:
+    """Inverse-distance-weighted mean of the features of each query point's
+    3 nearest database points: query [B, M, 3], database [B, N, 3],
+    features [B, N, C] -> [B, M, C]."""
+    d2, idx = knn(query, database, 3)
+    w = 1.0 / (d2 + 1e-8)
+    w = w / torch.sum(w, dim=-1, keepdim=True)
+    return torch.einsum('bmk,bmkc->bmc', w, knn_gather(features, idx))

@@ -1,7 +1,8 @@
 """Train a registration model (the port's counterpart of the JAX package's
 `train` sub-command).
 
-    python -m pcd_reg_hregnet_torch.train --experiment reg_v11 --dataset synthetic \\
+    python -m pcd_reg_hregnet_torch.train --experiment reg_v11 --dataset synthetic|man|audi \\
+        [--data-path DIR] \\
         [--batch-size 8 --epochs N --max-steps N --init PATH --pretrain-feats PATH \\
          --resume PATH|auto --log-dir DIR --device cuda|cpu --npoints N --debug-scale --watch \\
          --compute-dtype float32|bfloat16]
@@ -24,7 +25,9 @@ package's bf16 policy (parameters and optimizer state f32).  `--resume`
 takes the model config (compute dtype included) from the checkpoint, the
 options on top.  Writes one JSON line per step and per validation to
 `<log-dir>/metrics.jsonl`, checkpoints under `<log-dir>/ckpt/`, and prints
-a JSON summary.
+a JSON summary.  `--dataset man` / `audi` read a MAN TruckScenes / A2D2
+tree under `--data-path`; its val twist table is read from there, or drawn
+by the port and written there where missing (`data/pipeline.py`).
 """
 from __future__ import annotations
 

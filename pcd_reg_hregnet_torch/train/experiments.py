@@ -81,6 +81,9 @@ def add_config_args(ap) -> None:
     (`config_from_args`), and `--max-steps` and `--device`."""
     ap.add_argument('--experiment', default='reg_v11', choices=available())
     ap.add_argument('--dataset', default=None, choices=('man', 'audi', 'synthetic'))
+    ap.add_argument('--data-path', default=None,
+                    help='root of the dataset\'s files (TruckScenes, A2D2) and of its twist '
+                         'tables')
     ap.add_argument('--batch-size', type=int, default=None)
     ap.add_argument('--epochs', type=int, default=None)
     ap.add_argument('--max-steps', type=int, default=None)
@@ -104,7 +107,8 @@ def config_from_args(args, model_base=None) -> Config:
     cfg = experiment(args.experiment)
     if model_base is not None:
         cfg = dataclasses.replace(cfg, model=model_base)
-    data = {k: v for k, v in (('dataset', args.dataset), ('batch_size', args.batch_size),
+    data = {k: v for k, v in (('dataset', args.dataset), ('path', args.data_path),
+                              ('batch_size', args.batch_size),
                               ('pcd_min_samples', args.npoints)) if v is not None}
     train = {k: v for k, v in (('epochs', args.epochs), ('seed', args.seed)) if v is not None}
     if args.watch:

@@ -159,12 +159,19 @@ class TestPairDataset:
         np.testing.assert_array_equal(pipeline.minmax_scale(x), jpipeline.minmax_scale(x))
 
     def test_refusals(self, tmp_path):
-        with pytest.raises(NotImplementedError, match='item 12'):
+        # a real source needs its files' root
+        with pytest.raises(ValueError, match='data-path'):
             load_dataset(DataConfig(dataset='man'), 'test')
         # the train split is no longer refused: its twists are drawn per epoch
         item = load_dataset(DataConfig(pcd_min_samples=64), 'train', length=2)[0]
         assert item['igt'].shape == (4, 4) and np.all(np.isfinite(item['igt']))
-        ds = load_dataset(DataConfig(pcd_min_samples=64, path=str(tmp_path)), 'test')
+        # a table under cfg.path that is missing is drawn by the port and
+        # written; an exported one that is missing is refused
+        ds = load_dataset(DataConfig(pcd_min_samples=64, path=str(tmp_path)), 'test', length=2)
+        assert ds[0]['igt'].shape == (4, 4)
+        assert (tmp_path / 'perturbations_file_test.txt').exists()
+        ds = pipeline.PairDataset(ds.source, DataConfig(pcd_min_samples=64), 'test')
+        ds._perturb_path = str(tmp_path / 'missing.txt')
         with pytest.raises(FileNotFoundError, match='export_torch_weights'):
             ds[0]
 

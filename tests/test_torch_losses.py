@@ -333,7 +333,8 @@ class TestTrainTwists:
         assert tw.shape == (50, 6) and torch.equal(tw, again)
         T = se3.exp(tw)
         assert float(T[:, :3, 3].abs().max()) <= 0.5 + 1e-6
-        with pytest.raises(NotImplementedError):
-            perturbations.sample_twist(np.random.default_rng(0), 20.0, 0.5, 'inverse_gaussian')
+        ig = perturbations.sample_twist(np.random.default_rng(0), 20.0, 0.5, 'inverse_gaussian',
+                                        shape=(50,))
+        assert ig.shape == (50, 6) and bool(torch.isfinite(ig).all())
         with pytest.raises(ValueError):
             perturbations.sample_twist(np.random.default_rng(0), 20.0, 0.5, 'cauchy')
