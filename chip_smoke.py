@@ -169,19 +169,45 @@ Phases, each printing its own line with seconds:
    test --icp point_to_plane` (its `main`, in this process): launches
    exactly K1 2, K2 4, K3 36 a forward, a finite summary, and the twist
    table it drew written under the tree, equal to the port's draw and to
-   the decalibrations its results record.
+   the decalibrations its results record;
+20. slam: pose-graph SLAM (`pcd_reg_hregnet_torch.slam`) over
+   `SLAM_KEYFRAMES` keyframes of `N_POINTS` points (one synthetic world
+   scene seen from a chain of drifting poses, the port's numpy twist draw at
+   the training bounds; the odometry chain and `SLAM_LOOPS` loop closures):
+   the trained flagship registers the edges in B<=8 forwards
+   (`slam.model_register_fn`, launches exactly 2/4/36 a forward);
+   `optimize` on the card lowers chi2 and agrees with the port's CPU solve,
+   `distributed_optimize` and `schur_optimize` (one partition) on a
+   one-rank NCCL group agree with it (`SLAM_SOLVE_TOL`); the trajectory's
+   errors are printed; a sequence drifting at `SLAM_ICP_SCALE` of the
+   bounds, registered by point-to-plane ICP from the identity, recovers its
+   ground truth within `SLAM_ICP_TOL`;
+21. dp_train: `train.loop.fit` of `reg_v11` from the flagship on a
+   one-rank NCCL group, `DP_STEPS` steps at B=8 (launches exactly
+   2/4/36/36 a step), one step bit-identical to the same step without the
+   group (loss, gradients, BatchNorm statistics), and its median step time
+   beside phase 6's;
+22. cli: `python -m pcd_reg_hregnet_torch` on the card, through
+   `cli.main` in this process with each command's launches counted:
+   `infer --icp point_to_plane` on two synthetic test pairs (exactly
+   2/4/36 each) bit-identical to `serve.infer_pair`, `eval --icp-only` on
+   the synthetic test split (no launch) with a finite summary, and
+   `train --experiment reg_v11 --max-steps 2 --lr 1e-4` (exactly
+   2/4/36/36 a step plus its validation's forwards) whose checkpoint meta
+   records the options.
 
 Ends with a JSON line of per-kernel numbers, the card's name and power
 limit, the total seconds, and the result line.  In the JSON line, `ms`,
 `plain_ms`, `bound_ms` and `library_ms` add up the kernel's calls in one
 B=8 pair-forward (both towers; for K3b, the backward of one B=8 train
 step); `launches` is the sum of the counts over the main paths of phases
-4-19, each counted from 0 (K3 and K3b per dtype: the f32 rows count f32
+4-21, each counted from 0 (K3 and K3b per dtype: the f32 rows count f32
 launches only).  Exits non-zero, with no
 result line, when there is no CUDA device or any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -379,6 +405,15 @@ PTV3_ZERO_GRAD = 1e-5
 MAN_SCENES = {'train': 2, 'val': 1, 'test': 2}
 MAN_SAMPLES = 8          # samples per scene: 16 test pairs
 MAN_SWEEP_POINTS = (20000, 30000)
+# slam: 16 keyframes of one synthetic world scene, each in its own frame
+SLAM_KEYFRAMES = 16
+SLAM_LOOPS = 3           # loop closures beside the odometry chain: 18 edges
+SLAM_ICP_SCALE = 0.125   # the ICP sequence drifts at this share of the training bounds
+SLAM_ICP_TOL = (0.5, 0.05)      # deg, m: the ICP sequence against its ground truth
+SLAM_SOLVE_TOL = 1e-3    # pose entries: card vs CPU solve, sharded / Schur vs dense
+SLAM_ITERS = 10
+DP_STEPS = 2             # optimizer steps of the counted data-parallel `fit`
+DP_TIMED = 6             # synced steps timed on the one-rank group
 REPORT: dict = {}        # phase -> numbers the bf16 phases print beside the f32 ones
 
 
@@ -2484,6 +2519,368 @@ def man_eval_phase(torch, t0, smi: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def nccl_group():
+    """A one-rank NCCL process group on the card for the enclosed block
+    (`parallel.distributed.initialize` on a free localhost port)."""
+    import socket
+
+    from pcd_reg_hregnet_torch.parallel import distributed
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    distributed.initialize(f'127.0.0.1:{port}', 1, 0, device='cuda')
+    try:
+        yield
+    finally:
+        distributed.shutdown()
+
+
+def slam_sequence(torch, scale: float, seed: int):
+    """`SLAM_KEYFRAMES` keyframes of one synthetic world scene (`N_POINTS`
+    points), keyframe k seen from pose X_k (a chain of the port's numpy
+    twist draw at `scale` times the training bounds) with its own 1 cm
+    noise; the edges: the odometry chain and the `SLAM_LOOPS` pairs 2-4
+    apart whose relative rotation is smallest.  Returns clouds [K, N, 3],
+    ground-truth poses [K, 4, 4] (CPU) and the edges."""
+    from pcd_reg_hregnet_torch.core.config import DataConfig
+    from pcd_reg_hregnet_torch.data.synthetic import SyntheticPairSource
+    from pcd_reg_hregnet_torch.geometry import se3, so3
+    from pcd_reg_hregnet_torch.geometry.perturbations import sample_twist
+    K, d = SLAM_KEYFRAMES, DataConfig()
+    rng = np.random.default_rng(seed)
+    scene = torch.from_numpy(SyntheticPairSource(1, N_POINTS)._scene_points(rng, N_POINTS))
+    tw = sample_twist(rng, d.max_rot_error * scale, d.max_trans_error * scale, d.distribution,
+                      d.mag_randomly, shape=(K - 1,))
+    gt = [torch.eye(4)]
+    for k in range(K - 1):
+        gt.append(gt[-1] @ se3.exp(tw[k]))
+    gt = torch.stack(gt)
+    clouds = torch.stack([se3.transform(se3.inverse(gt[k]), scene) for k in range(K)])
+    clouds = clouds + torch.from_numpy(rng.normal(0, 0.01, clouds.shape).astype(np.float32))
+    pairs = [(i, j) for i in range(K) for j in range(i + 2, min(i + 5, K))]
+    angle = {(i, j): float(so3.geodesic_distance((se3.inverse(gt[i]) @ gt[j])[:3, :3],
+                                                 torch.eye(3))) for i, j in pairs}
+    loops = sorted(pairs, key=angle.get)[:SLAM_LOOPS]
+    return clouds, gt, [(k, k + 1) for k in range(K - 1)] + loops
+
+
+def edge_error(torch, T, ref) -> tuple:
+    """Rotation (deg) and translation (m) errors of transforms `T` against
+    `ref` [n, 4, 4], as numpy arrays."""
+    from pcd_reg_hregnet_torch.geometry import se3, so3
+    err = se3.inverse(T) @ ref
+    ang = torch.rad2deg(so3.geodesic_distance(err[:, :3, :3], torch.eye(3).expand(len(T), 3, 3)))
+    return ang.numpy(), err[:, :3, 3].norm(dim=-1).numpy()
+
+
+def trajectory_error(torch, poses, gt) -> tuple:
+    """Largest rotation (deg) and translation (m) error of `poses` against
+    `gt`, both anchored at pose 0."""
+    rot, tr = edge_error(torch, poses.cpu(), gt)
+    return float(rot.max()), float(tr.max())
+
+
+def slam_phase(torch, t0, smi: str) -> dict:
+    """Pose-graph SLAM with the trained flagship registering keyframes:
+    `slam_sequence` at the training bounds (18 edges) registered by
+    `slam.model_register_fn` (`serve.register`, B<=8: 3 forwards, launches
+    exactly 2/4/36 each), then `optimize` on the card (chi2 falls; the
+    poses within `SLAM_SOLVE_TOL` of the port's CPU solve of the same
+    measurements), `distributed_optimize` and `schur_optimize` (one
+    partition) on a one-rank NCCL group within `SLAM_SOLVE_TOL` of the dense
+    solve, and the trajectory's errors printed (no gate but finite); then
+    the sequence at `SLAM_ICP_SCALE` of the bounds (ICP from the identity
+    converges only within a few degrees) registered by
+    `slam.icp_register_fn('point_to_plane')` recovers its ground truth
+    within `SLAM_ICP_TOL` after `optimize`."""
+    from pcd_reg_hregnet_torch import slam
+    from pcd_reg_hregnet_torch.geometry import se3
+    from pcd_reg_hregnet_torch.models import zoo
+    from pcd_reg_hregnet_torch.utils.checkpoint import FLAGSHIP
+
+    phase = 'slam'
+    model = zoo.build('model_v6', device='cuda', weights=FLAGSHIP)
+    per_forward = per_forward_launches(model.cfg)
+    clouds, gt, edges = slam_sequence(torch, 1.0, 20)
+    clouds = clouds.cuda()
+    register = slam.model_register_fn(model)
+    reset_launches()
+    t = time.perf_counter()
+    graph = slam.build_pose_graph(clouds, edges, register)
+    torch.cuda.synchronize()
+    reg_s = time.perf_counter() - t
+    launches = read_launches()
+    forwards = -(-len(edges) // slam.sequence.MAX_BATCH)
+    check_launches(launches, per_forward, forwards)
+    if not all(torch.isfinite(x).all() for x in (graph.measurements, graph.weights, graph.poses)):
+        raise AssertionError(f'{phase}: non-finite measurements, weights or poses')
+    rel = torch.stack([se3.inverse(gt[i]) @ gt[j] for i, j in edges])
+    e_rot, e_tr = edge_error(torch, graph.measurements.cpu(), rel)
+    log(phase, t0, f'{len(clouds)} keyframes x {clouds.shape[1]} points, {len(edges)} edges '
+        f'(loops {edges[-SLAM_LOOPS:]}) registered by the flagship in {forwards} forwards, '
+        f'{reg_s:.2f} s; launches {launches}; edge weights {graph.weights.min():.2e}-'
+        f'{graph.weights.max():.2e}; measurement error against the true relative poses: '
+        f'median {np.median(e_rot):.3f} deg / {np.median(e_tr):.3f} m, max '
+        f'{e_rot.max():.3f} deg / {e_tr.max():.3f} m')
+
+    t = time.perf_counter()
+    poses = slam.optimize(graph, iters=SLAM_ITERS)
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t
+    before, after = float(slam.chi2(graph.poses, graph)), float(slam.chi2(poses, graph))
+    cpu = slam.optimize(slam.PoseGraph(*(a.cpu() for a in graph)), iters=SLAM_ITERS)
+    d_cpu = float((poses.cpu() - cpu).abs().max())
+    with nccl_group():
+        sharded = slam.distributed_optimize(graph, iters=SLAM_ITERS)
+        schur = slam.schur_optimize(slam.partition_graph(graph, 1), iters=SLAM_ITERS)
+    d_sharded = float((sharded - poses).abs().max())
+    d_schur = float((schur - poses).abs().max())
+    if not (after < before and d_cpu <= SLAM_SOLVE_TOL and d_sharded <= SLAM_SOLVE_TOL
+            and d_schur <= SLAM_SOLVE_TOL):
+        raise AssertionError(f'{phase}: chi2 {before} -> {after}; card vs CPU {d_cpu}, '
+                             f'sharded {d_sharded}, Schur {d_schur} (limit {SLAM_SOLVE_TOL})')
+    rot0, tr0 = trajectory_error(torch, graph.poses, gt)
+    rot, tr = trajectory_error(torch, poses, gt)
+    if not all(np.isfinite(x) for x in (rot, tr)):
+        raise AssertionError(f'{phase}: non-finite trajectory error {rot} deg, {tr} m')
+    log(phase, t0, f'optimize on the card ({SLAM_ITERS} iterations, {opt_s * 1e3:.1f} ms): chi2 '
+        f'{before:.4e} -> {after:.4e}; max|d pose| vs the CPU solve {d_cpu:.2e}, '
+        f'distributed_optimize (one-rank NCCL group) {d_sharded:.2e}, schur_optimize (one '
+        f'partition) {d_schur:.2e} (limit {SLAM_SOLVE_TOL}); model trajectory max error '
+        f'chained {rot0:.3f} deg / {tr0:.3f} m, optimised {rot:.3f} deg / {tr:.3f} m')
+
+    clouds, gt, edges = slam_sequence(torch, SLAM_ICP_SCALE, 21)
+    t = time.perf_counter()
+    graph = slam.build_pose_graph(clouds.cuda(), edges, slam.icp_register_fn('point_to_plane'))
+    rot, tr = trajectory_error(torch, slam.optimize(graph, iters=SLAM_ITERS), gt)
+    icp_s = time.perf_counter() - t
+    if not (rot <= SLAM_ICP_TOL[0] and tr <= SLAM_ICP_TOL[1]):
+        raise AssertionError(f'{phase}: ICP trajectory error {rot} deg, {tr} m (limits '
+                             f'{SLAM_ICP_TOL})')
+    log(phase, t0, f'ICP sequence ({SLAM_ICP_SCALE} of the training bounds, {len(edges)} '
+        f'edges, point-to-plane from the identity) in {icp_s:.2f} s: max error {rot:.4f} deg '
+        f'/ {tr:.4f} m after optimize (limits {SLAM_ICP_TOL[0]} deg / {SLAM_ICP_TOL[1]} m)')
+    return launches
+
+
+def dp_train_phase(torch, t0, smi: str) -> dict:
+    """`reg_v11` from the flagship on a one-rank NCCL group: `fit` for
+    `DP_STEPS` steps at B=8 (launches exactly 2/4/36/36 a step plus the
+    validation's forwards, `metrics.csv` written); one step on the group
+    against the same step without it: the gradient all-reduce returns the
+    backward's gradients bit for bit, and the loss, every gradient and the
+    BatchNorm statistics equal the step alone's (bit for bit where two
+    steps alone are; else within 4x their own spread, which the
+    backward's atomic scatter-adds set); the median of `DP_TIMED` synced
+    steps beside the train phase's."""
+    import tempfile
+    from pathlib import Path
+
+    from pcd_reg_hregnet_torch.data import batch_iterator, load_dataset
+    from pcd_reg_hregnet_torch.train import loop
+    from pcd_reg_hregnet_torch.utils import checkpoint
+
+    phase = 'dp_train'
+    cfg = checkpoint.load_config(checkpoint.FLAGSHIP)
+    bs = cfg.data.batch_size
+    per_step, per_forward = per_step_launches(cfg), per_forward_launches(cfg.model)
+    train_ds = load_dataset(cfg.data, 'train')
+    val_ds = load_dataset(cfg.data, 'val', length=TRAIN_VAL_PAIRS)
+    it = batch_iterator(train_ds, bs, shuffle=True, seed=cfg.train.seed, epoch=0)
+    batches = [loop.to_device(next(it), torch.device('cuda')) for _ in range(DP_TIMED + 1)]
+    step = loop.make_train_step()
+
+    def one_step():
+        """(loss, gradients, BatchNorm statistics) of one step from the flagship."""
+        state = loop.create_state(cfg, len(train_ds) // bs, device='cuda',
+                                  init=checkpoint.FLAGSHIP)
+        m = step(state, batches[0])
+        obj = state.objective
+        return {'loss': m['loss'].reshape(1),
+                **{n: p.grad.clone() for n, p in obj.named_parameters() if p.grad is not None},
+                **{k: v.clone() for k, v in obj.state_dict().items() if 'running_' in k}}
+
+    def worst(a, b):
+        if a.keys() != b.keys():
+            raise AssertionError(f'{phase}: leaves differ: {sorted(a.keys() ^ b.keys())[:4]}')
+        return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+    alone, again = one_step(), one_step()
+    spread = worst(alone, again)
+    reduced = []
+    average = loop._average_over_ranks
+
+    def recorded(tensors):
+        before = [t.clone() for t in tensors]
+        average(tensors)
+        reduced.append(all(torch.equal(a, b) for a, b in zip(before, tensors)))
+    with nccl_group(), tempfile.TemporaryDirectory() as log_dir:
+        reset_launches()
+        t = time.perf_counter()
+        state, val = loop.fit(cfg, log_dir=log_dir, max_steps=DP_STEPS,
+                              datasets=(train_ds, val_ds), init=str(checkpoint.FLAGSHIP),
+                              device='cuda')
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        launches, fit_step = read_launches(), state.step
+        rows = (Path(log_dir) / 'metrics.csv').read_text().splitlines()
+        loop._average_over_ranks = recorded
+        try:
+            grouped = one_step()
+        finally:
+            loop._average_over_ranks = average
+        times = []
+        for batch in batches[1:]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    val_forwards = -(-TRAIN_VAL_PAIRS // bs)
+    for k in per_step:
+        want = per_step[k] * DP_STEPS + per_forward[k] * val_forwards
+        if launches[k] != want:
+            raise AssertionError(f'{k}: {launches[k]} launches in {DP_STEPS} steps and '
+                                 f'{val_forwards} val forwards, expected {want}')
+    if fit_step != DP_STEPS or len(rows) != 2 or not np.isfinite(val['loss']):
+        raise AssertionError(f'{phase}: step {fit_step}, metrics.csv {rows}, val {val}')
+    log(phase, t0, f'fit(reg_v11, B={bs}, from the flagship, {DP_STEPS} steps) on a one-rank '
+        f'NCCL group in {fit_s:.2f} s on {smi}; launches {launches} (per step exactly '
+        f'{per_step}); metrics.csv header {rows[0][:60]}...; val loss {val["loss"]:.5f}')
+    d_group = worst(alone, grouped)
+    if reduced != [True, True] or not d_group <= 4 * spread:
+        raise AssertionError(f'{phase}: all-reduces exact {reduced}; the step on the group '
+                             f'differs from the step alone by {d_group} (two steps alone: '
+                             f'{spread})')
+    med = float(np.median(times))
+    REPORT[phase] = {'median step ms': med}
+    log(phase, t0, f'one step on the group: the gradient all-reduce returned the backward\'s '
+        f'gradients bit for bit; against the step alone max|d| {d_group:.2e} over the loss, '
+        f'{sum(1 for k in alone if "running_" not in k) - 1} gradients and '
+        f'{sum(1 for k in alone if "running_" in k)} BatchNorm statistics (two steps alone: '
+        f'{spread:.2e}' + ('; bit-identical' if d_group == 0 else '') + f'); step median '
+        f'{med:.1f} ms (min {min(times):.1f}, max {max(times):.1f}; {DP_TIMED} synced steps, '
+        f'host clock) beside the train phase\'s '
+        f'{REPORT.get("train", {}).get("median step ms", float("nan")):.1f} ms')
+    return launches
+
+
+def run_cli(torch, t0, phase: str, argv: list) -> tuple:
+    """`python -m pcd_reg_hregnet_torch ARGV` as `cli.main(ARGV)` in this
+    process, the launch counts set to 0 just before it: (its stdout, the
+    launches it made)."""
+    import io
+
+    from pcd_reg_hregnet_torch import cli
+    out = io.StringIO()
+    reset_launches()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if rc != 0:
+        raise AssertionError(f'{phase}: {argv[0]} returned {rc}:\n{out.getvalue()[-3000:]}')
+    log(phase, t0, f'python -m pcd_reg_hregnet_torch {" ".join(argv)}: '
+        f'{time.perf_counter() - t:.1f} s; launches {launches}')
+    return out.getvalue(), launches
+
+
+def cli_phase(torch, t0, smi: str) -> dict:
+    """`python -m pcd_reg_hregnet_torch` through `cli.main` on the card,
+    each command's launches counted: `infer --icp point_to_plane` on two
+    synthetic test pairs (one `.npy` pair, one `.bin` pair) launches
+    exactly 2/4/36 (one forward) and writes the pose JSON of
+    `serve.infer_pair` on the same clouds, bit for bit; `eval --icp-only`
+    on the synthetic test split launches no kernel and gives a finite
+    summary; `train --experiment reg_v11 --max-steps 2 --lr 1e-4` launches
+    exactly 2/4/36/36 a step plus 2/4/36 a validation forward and writes
+    checkpoints whose meta records the options.  Returns the launches of
+    `infer` and `train`."""
+    import tempfile
+    from pathlib import Path
+
+    from pcd_reg_hregnet_torch import cli, serve
+    from pcd_reg_hregnet_torch.data import load_dataset
+    from pcd_reg_hregnet_torch.models import zoo
+    from pcd_reg_hregnet_torch.train.experiments import config_from_args
+    from pcd_reg_hregnet_torch.utils.checkpoint import FLAGSHIP
+
+    phase = 'cli'
+    model = zoo.build('model_v6', device='cuda', weights=FLAGSHIP)
+    per_forward = per_forward_launches(model.cfg)
+    total = dict.fromkeys(per_forward, 0)
+    with tempfile.TemporaryDirectory() as d:
+        for i, (src, dst) in enumerate(synthetic_pairs(2)):
+            if i == 0:
+                paths = [f'{d}/src{i}.npy', f'{d}/dst{i}.npy']
+                np.save(paths[0], src)
+                np.save(paths[1], dst)
+            else:
+                paths = [f'{d}/src{i}.bin', f'{d}/dst{i}.bin']
+                for path, pts in zip(paths, (src, dst)):
+                    np.column_stack([pts[:, :3], np.zeros((len(pts), 2))]).astype(
+                        np.float32).tofile(path)
+            out = f'{d}/pose{i}.json'
+            _, launches = run_cli(torch, t0, phase, [
+                'infer', '--ckpt', str(FLAGSHIP), '--src', paths[0], '--dst', paths[1],
+                '--icp', 'point_to_plane', '--out', out])
+            check_launches(launches, per_forward, 1)
+            total = {k: total[k] + launches[k] for k in total}
+            got = json.loads(Path(out).read_text())
+            want = json.loads(json.dumps(serve.infer_pair(
+                model, src[:, :3], dst[:, :3], device='cuda', icp='point_to_plane')))
+            if got != want:
+                diff = max(float(np.abs(np.asarray(got[k]) - np.asarray(want[k])).max())
+                           for k in want) if set(got) == set(want) else None
+                raise AssertionError(f'{phase}: infer pair {i} differs from serve.infer_pair '
+                                     f'(keys {sorted(got)} vs {sorted(want)}, max|d| {diff})')
+        log(phase, t0, 'infer (point-to-plane ICP) on 2 synthetic test pairs (.npy, .bin): '
+            'the pose JSON of serve.infer_pair, bit-identical; launches exactly '
+            f'{per_forward} each')
+        results = f'{d}/icp_only.json'
+        _, launches = run_cli(torch, t0, phase, [
+            'eval', '--icp-only', '--icp', 'point_to_plane', '--batch-size', '8',
+            '--icp-iters', '30', '--results', results])
+        check_launches(launches, per_forward, 0)
+        res = json.loads(Path(results).read_text())
+        summary = res['summary']
+        if len(res['layer_0']['rre']) != 256 or not all(np.isfinite(v)
+                                                        for v in summary.values()):
+            raise AssertionError(f'{phase}: eval --icp-only: {len(res["layer_0"]["rre"])} '
+                                 f'pairs, summary {summary}')
+        log(phase, t0, f'eval --icp-only (point-to-plane from the identity, 30 iterations) '
+            f'on the 256 synthetic test pairs, no kernel launched: summary {summary}')
+        run_dir = f'{d}/run'
+        argv = ['train', '--experiment', 'reg_v11', '--max-steps', '2', '--lr', '1e-4',
+                '--batch-size', '8', '--log-dir', run_dir]
+        cfg = config_from_args(cli.parser().parse_args(argv))
+        per_step, bs = per_step_launches(cfg), cfg.data.batch_size
+        val_forwards = -(-len(load_dataset(cfg.data, 'val')) // bs) \
+            if cfg.train.val_every == 1 else 0
+        _, launches = run_cli(torch, t0, phase, argv)
+        for k in per_step:
+            want = per_step[k] * 2 + per_forward[k] * val_forwards
+            if launches[k] != want:
+                raise AssertionError(f'{phase}: {k}: {launches[k]} launches in 2 steps and '
+                                     f'{val_forwards} val forwards, expected {want}')
+        total = {k: total[k] + launches[k] for k in total}
+        meta = json.loads(Path(run_dir, 'ckpt', 'last', 'meta.json').read_text())
+        saved = json.loads(meta['config'])
+        csv_rows = Path(run_dir, 'metrics.csv').read_text().splitlines()
+        if (meta['step'], saved['train']['lr'], saved['data']['batch_size']) != (2, 1e-4, 8) \
+                or len(csv_rows) != 2:
+            raise AssertionError(f'{phase}: train meta step {meta["step"]}, lr '
+                                 f'{saved["train"]["lr"]}, batch {saved["data"]["batch_size"]}'
+                                 f'; metrics.csv {csv_rows}')
+        log(phase, t0, f'train --experiment reg_v11 --max-steps 2 --lr 1e-4 --batch-size 8: '
+            f'launches exactly {per_step} a step and {per_forward} in each of {val_forwards} '
+            f'val forwards; checkpoint meta step 2, lr 1e-4, batch 8; metrics.csv '
+            f'{csv_rows[0][:50]}...')
+    return total
+
+
 def main() -> int:
     t0 = time.perf_counter()
     import torch
@@ -2537,7 +2934,10 @@ def main() -> int:
                           WARM_EVAL_MAX_OUTSIDE, WARM_EVAL_SUMMARY_TOL),
                warm_start_phase(torch, t0, smi),
                ptv3_full_phase(torch, t0, smi),
-               man_eval_phase(torch, t0, smi)]
+               man_eval_phase(torch, t0, smi),
+               slam_phase(torch, t0, smi),
+               dp_train_phase(torch, t0, smi),
+               cli_phase(torch, t0, smi)]
     for e in entries:
         e['launches'] = sum(c[e['name']] for c in counted)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',

@@ -276,18 +276,20 @@ def batch_iterator(dataset, batch_size: int, *, shuffle: bool = False,
     parallel and up to `prefetch` batches ahead of the consumer (the native
     filter/resample and numpy release the GIL); the batches are the
     synchronous path's.  `local_slice` loads only those rows of each batch
-    (one process's share of a global batch).
+    (one process's share of a global batch); a batch whose share is empty
+    (a short last batch) is passed over.
     """
     n = len(dataset)
     order = np.arange(n)
     if shuffle:
         np.random.default_rng((seed, epoch)).shuffle(order)
     end = n - (n % batch_size) if drop_last else n
-    starts = list(range(skip * batch_size, end, batch_size))
 
     def indices(start):
         idxs = order[start:start + batch_size]
         return idxs if local_slice is None else idxs[local_slice]
+
+    starts = [s for s in range(skip * batch_size, end, batch_size) if len(indices(s))]
 
     def stack(items):
         return {k: np.stack([it[k] for it in items]) for k in items[0]}

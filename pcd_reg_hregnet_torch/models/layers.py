@@ -26,6 +26,7 @@ from ..geometry import so3
 from ..ops.neighbors import knn, knn_gather, knn_group
 from ..ops.procrustes import weighted_kabsch
 from ..ops.sampling import fps, gather_points, weighted_fps
+from ..parallel import distributed
 
 
 def low_precision(dtype: torch.dtype) -> bool:
@@ -122,6 +123,17 @@ class Dense(nn.Linear):
         return y + self.bias.to(dt)
 
 
+def _global_moments(flat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean and fast biased variance of `flat` [n, C] over the rows of every
+    rank of the default group."""
+    from torch.distributed.nn.functional import all_reduce
+    C = flat.shape[-1]
+    sums = all_reduce(torch.cat([flat.sum(0), (flat * flat).sum(0),
+                                 flat.new_full((1,), flat.shape[0])]))
+    mean = sums[:C] / sums[-1]
+    return mean, torch.clamp(sums[C:2 * C] / sums[-1] - mean * mean, min=0.0)
+
+
 class BatchNorm(nn.Module):
     """Channels-last BatchNorm over every axis but the last, flax's in both
     modes.
@@ -133,6 +145,12 @@ class BatchNorm(nn.Module):
     and the *biased* batch variance, max(0, E[x^2] - E[x]^2) (flax's fast
     variance), normalise, and the running statistics move towards those same
     two values (torch's `F.batch_norm` would store the unbiased variance).
+
+    Data parallel (a process group of more than one rank): train mode takes
+    the statistics over the global batch, as flax's BatchNorm does under a
+    sharded jit: one all-reduce of the f32 sums of x and x^2 and the row
+    count (differentiable: its backward sums the ranks' gradients), then the
+    same fast variance.  Alone, or at world size 1, nothing changes.
 
     dtype, as the JAX layers set flax's: train mode computes in f32 from an
     input of any dtype and returns f32; eval mode computes in f32 and
@@ -161,8 +179,11 @@ class BatchNorm(nn.Module):
             return y.reshape(x.shape).to(out)
         x = x.to(wide)
         flat = x.reshape(-1, x.shape[-1])
-        mean = flat.mean(0)
-        var = torch.clamp((flat * flat).mean(0) - mean * mean, min=0.0)
+        if distributed.world_size() > 1:
+            mean, var = _global_moments(flat)
+        else:
+            mean = flat.mean(0)
+            var = torch.clamp((flat * flat).mean(0) - mean * mean, min=0.0)
         with torch.no_grad():
             decay = 1.0 - self.momentum
             self.running_mean.copy_(decay * self.running_mean + self.momentum * mean)

@@ -30,8 +30,9 @@ def register(model: torch.nn.Module, src: torch.Tensor | np.ndarray,
              device: str | torch.device = 'cuda') -> dict:
     """Register a batch: src, dst [B, N, 3] -> finest pose.
 
-    Returns {'rotation': [B, 3, 3], 'translation': [B, 3]} as tensors on
-    `device`.
+    Returns {'rotation': [B, 3, 3], 'translation': [B, 3], 'weights': [B, n]}
+    as tensors on `device`: the finest level's pose and its correspondence
+    weights (`src_dst_weights_1`).
     """
     dev = resolve_device(device)
     param = next(model.parameters())
@@ -43,7 +44,8 @@ def register(model: torch.nn.Module, src: torch.Tensor | np.ndarray,
         raise ValueError(f'register takes src, dst [B, N, 3] of one shape, got '
                          f'{tuple(src.shape)} and {tuple(dst.shape)}')
     out = model(src, dst)
-    return {'rotation': out['rotation'][-1], 'translation': out['translation'][-1]}
+    return {'rotation': out['rotation'][-1], 'translation': out['translation'][-1],
+            'weights': out['src_dst_weights_1']}
 
 
 def infer_pair(model: torch.nn.Module, src_points: np.ndarray,

@@ -3,9 +3,14 @@
 
     python -m pcd_reg_hregnet_torch.train --experiment reg_v11 --dataset synthetic|man|audi \\
         [--data-path DIR] \\
-        [--batch-size 8 --epochs N --max-steps N --init PATH --pretrain-feats PATH \\
+        [--batch-size 8 --epochs N --lr LR --max-steps N --init PATH --pretrain-feats PATH \\
          --resume PATH|auto --log-dir DIR --device cuda|cpu --npoints N --debug-scale --watch \\
-         --compute-dtype float32|bfloat16]
+         --compute-dtype float32|bfloat16 --ptv3-cpe knn|curve|none --ptv3-grid-size S]
+
+The same command as `python -m pcd_reg_hregnet_torch train` (`cli.py`),
+which parses its options with `add_train_args` too; under a launcher
+(torchrun, or the JAX package's COORDINATOR_ADDRESS / PROCESS_COUNT /
+PROCESS_INDEX) every rank runs it and `fit` trains data parallel.
 
 Every experiment of the table runs (`reg_v0`-`reg_v13`, `baseline`,
 `man_registration`; `feats`/`feats_desc` train the registration objective
@@ -42,16 +47,18 @@ from .experiments import add_config_args, config_from_args, experiment
 from .loop import fit, latest_checkpoint
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser('python -m pcd_reg_hregnet_torch.train')
+def add_train_args(ap, log_dir: str = 'runs/torch') -> None:
+    """The train command's options: `experiments.add_config_args` and the run's own."""
     add_config_args(ap)
     ap.add_argument('--init', default=None, help='checkpoint to start from')
     ap.add_argument('--pretrain-feats', default=None,
                     help='feats checkpoint to start the feature extraction from')
     ap.add_argument('--resume', default=None, help="train checkpoint directory, or 'auto'")
-    ap.add_argument('--log-dir', default='runs/torch')
-    args = ap.parse_args(argv)
+    ap.add_argument('--log-dir', default=log_dir)
 
+
+def run(args) -> int:
+    """Train as `args` (of `add_train_args`) say; prints a JSON summary."""
     # a resumed run's model config comes from its checkpoint, the options on
     # top (compute dtype included), as the JAX CLI's `train --resume` does
     resume = args.resume
@@ -67,6 +74,12 @@ def main(argv=None) -> int:
                       'seconds': round(time.perf_counter() - t, 2), 'val': val,
                       'best': state.best}))
     return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser('python -m pcd_reg_hregnet_torch.train')
+    add_train_args(ap)
+    return run(ap.parse_args(argv))
 
 
 if __name__ == '__main__':

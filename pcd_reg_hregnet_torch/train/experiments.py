@@ -78,7 +78,10 @@ def available() -> list[str]:
 
 def add_config_args(ap) -> None:
     """The command-line options that pick and adjust an experiment
-    (`config_from_args`), and `--max-steps` and `--device`."""
+    (`config_from_args`; every option of the JAX package's CLI `_common`
+    but `--log-dir`), and `--max-steps` and `--device`.  One parser for
+    `python -m pcd_reg_hregnet_torch` (`cli.py`), `.train` and
+    `.train.feats`."""
     ap.add_argument('--experiment', default='reg_v11', choices=available())
     ap.add_argument('--dataset', default=None, choices=('man', 'audi', 'synthetic'))
     ap.add_argument('--data-path', default=None,
@@ -86,6 +89,7 @@ def add_config_args(ap) -> None:
                          'tables')
     ap.add_argument('--batch-size', type=int, default=None)
     ap.add_argument('--epochs', type=int, default=None)
+    ap.add_argument('--lr', type=float, default=None)
     ap.add_argument('--max-steps', type=int, default=None)
     ap.add_argument('--seed', type=int, default=None)
     ap.add_argument('--npoints', type=int, default=None, help='points per cloud')
@@ -95,7 +99,13 @@ def add_config_args(ap) -> None:
                          'and sampling, not matmul throughput)')
     ap.add_argument('--debug-scale', action='store_true',
                     help='a small keypoint pyramid and PTv3 stack, for CPU runs')
+    ap.add_argument('--ptv3-cpe', default=None, choices=('knn', 'curve', 'none'),
+                    help='PTv3 positional-encoding operator (ablations)')
+    ap.add_argument('--ptv3-grid-size', type=float, default=None,
+                    help='PTv3 serialization voxel size (ablations)')
     ap.add_argument('--watch', action='store_true', help='log per-module norms')
+    ap.add_argument('--use-wandb', action='store_true',
+                    help='also log to wandb where it is installed and reachable')
     ap.add_argument('--device', default='cuda')
 
 
@@ -110,12 +120,15 @@ def config_from_args(args, model_base=None) -> Config:
     data = {k: v for k, v in (('dataset', args.dataset), ('path', args.data_path),
                               ('batch_size', args.batch_size),
                               ('pcd_min_samples', args.npoints)) if v is not None}
-    train = {k: v for k, v in (('epochs', args.epochs), ('seed', args.seed)) if v is not None}
+    train = {k: v for k, v in (('epochs', args.epochs), ('lr', args.lr), ('seed', args.seed))
+             if v is not None}
     if args.watch:
         train['watch'] = True
-    model = {}
-    if args.compute_dtype is not None:
-        model['compute_dtype'] = args.compute_dtype
+    if args.use_wandb:
+        train['use_wandb'] = True
+    model = {k: v for k, v in (('compute_dtype', args.compute_dtype),
+                               ('ptv3_cpe', args.ptv3_cpe),
+                               ('ptv3_grid_size', args.ptv3_grid_size)) if v is not None}
     if args.debug_scale:
         model.update(levels=(LevelConfig(64, 16, (16, 16, 32), 32),
                              LevelConfig(32, 8, (32, 32, 64), 64),

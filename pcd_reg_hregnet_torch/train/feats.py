@@ -132,17 +132,19 @@ def recipe(cfg: Config, stage: str) -> Config:
         freeze_detector=stage == 'descriptor'))
 
 
-def main(argv=None) -> int:
-    from .feats_loop import fit_feats
-    ap = argparse.ArgumentParser('python -m pcd_reg_hregnet_torch.train.feats')
+def add_feats_args(ap, log_dir: str = 'runs/torch_feats') -> None:
+    """The pretrain command's options: `experiments.add_config_args` and the stage's own."""
     ap.add_argument('--stage', default='detector', choices=STAGES)
     ap.add_argument('--pretrain-detector', default=None,
                     help='feats checkpoint to start from (weights only, fresh optimizer): '
                          'the detector stage\'s directory, or an exported .npz')
     add_config_args(ap)
-    ap.add_argument('--log-dir', default='runs/torch_feats')
-    args = ap.parse_args(argv)
+    ap.add_argument('--log-dir', default=log_dir)
 
+
+def run(args) -> int:
+    """Pretrain one stage as `args` (of `add_feats_args`) say; prints a JSON summary."""
+    from .feats_loop import fit_feats
     cfg = recipe(config_from_args(args), args.stage)
     t = time.perf_counter()
     state, metrics = fit_feats(cfg, stage=args.stage, pretrain_detector=args.pretrain_detector,
@@ -152,6 +154,12 @@ def main(argv=None) -> int:
                       'epoch': state.epoch, 'seconds': round(time.perf_counter() - t, 2),
                       'train': metrics}))
     return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser('python -m pcd_reg_hregnet_torch.train.feats')
+    add_feats_args(ap)
+    return run(ap.parse_args(argv))
 
 
 if __name__ == '__main__':

@@ -10,6 +10,7 @@ resumed run continues at its step.
 from __future__ import annotations
 
 import os
+import time
 from typing import Dict, Optional
 
 import torch
@@ -17,6 +18,7 @@ import torch
 from ..core.config import Config
 from ..data import load_dataset
 from ..utils import checkpoint
+from ..utils.logging import MetricLogger
 from .feats import create_feats_state
 from .loop import TrainState, _log, make_train_step, run_epoch
 
@@ -34,7 +36,8 @@ def fit_feats(cfg: Config, *, stage: str = 'detector', pretrain_detector: Option
     `<log_dir>/<ckpt_dir>/feats_<stage>` (written after every epoch and at
     the last step) is restored in full when it exists: weights, optimizer,
     step and epoch.  Writes one JSON line per step to
-    `<log_dir>/metrics.jsonl`.
+    `<log_dir>/metrics.jsonl` and one row per epoch to `<log_dir>/metrics.csv`
+    (`utils.logging.MetricLogger`).
     """
     train_ds = datasets[0] if datasets else load_dataset(cfg.data, 'train')
     bs = cfg.data.batch_size
@@ -50,10 +53,12 @@ def fit_feats(cfg: Config, *, stage: str = 'detector', pretrain_detector: Option
     os.makedirs(log_dir, exist_ok=True)
     metrics: Dict[str, float] = {}
     start_epoch = min(state.step // steps_per_epoch, cfg.train.epochs)
+    logger = MetricLogger(log_dir, cfg, trim_from_epoch=start_epoch if start_epoch else None)
     with open(os.path.join(log_dir, 'metrics.jsonl'), 'a') as log:
         for epoch in range(start_epoch, cfg.train.epochs):
             if max_steps is not None and state.step >= max_steps:
                 break
+            t0 = time.time()
             metrics = run_epoch(
                 train_ds, step, state, bs, train=True, shuffle=True, seed=cfg.train.seed,
                 epoch=epoch, skip=max(0, state.step - epoch * steps_per_epoch),
@@ -61,5 +66,7 @@ def fit_feats(cfg: Config, *, stage: str = 'detector', pretrain_detector: Option
                 on_step=lambda m: _log(log, {'split': 'train', 'stage': stage, 'epoch': epoch,
                                              'step': state.step, **m}))
             state.epoch = epoch
+            logger.log_epoch(epoch, metrics, {}, seconds=time.time() - t0)
             checkpoint.save_train(stage_ckpt, state, cfg)
+    logger.close()
     return state, metrics

@@ -4,9 +4,12 @@ The port must run where only PyTorch is installed, so no module of
 `pcd_reg_hregnet_torch` and nothing `chip_smoke.py` imports may import
 JAX, flax, orbax or the JAX package.  A fresh interpreter with those imports blocked
 imports every module (`train/` and `losses/` among them), runs the CPU
-serving path once and takes one CPU train step.  The CUDA sources
-must not include PyTorch's headers (one plain nvcc call builds them in
-seconds).
+serving path once and takes one CPU train step; another runs
+`python -m pcd_reg_hregnet_torch --help` and every subcommand (`train`,
+`eval --icp-only`, `infer`, `pretrain-feats`, `visualize`) at a small size
+on the CPU; a third imports `utils.visualize` and the command line with
+matplotlib blocked, as on the card's machine.  The CUDA sources must not
+include PyTorch's headers (one plain nvcc call builds them in seconds).
 """
 import os
 import pathlib
@@ -69,6 +72,83 @@ def test_port_and_chip_smoke_import_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert 'GUARD_OK' in proc.stdout
+
+
+_CLI = r'''
+import sys
+for name in ('jax', 'jaxlib', 'flax', 'orbax', 'optax', 'pcd_reg_hregnet_tpu'):
+    sys.modules[name] = None
+import contextlib, io, json, os, runpy, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+argv = sys.argv
+sys.argv = ['pcd_reg_hregnet_torch', '--help']
+try:
+    runpy.run_module('pcd_reg_hregnet_torch', run_name='__main__')
+except SystemExit as e:
+    assert e.code == 0, e.code
+from pcd_reg_hregnet_torch import cli
+from pcd_reg_hregnet_torch.data import load_dataset
+from pcd_reg_hregnet_torch.eval import runner
+from pcd_reg_hregnet_torch.train import feats_loop, loop
+
+
+def small(cfg, split, **kw):
+    return load_dataset(cfg, split, length=4)
+for mod in (loop, runner, feats_loop):
+    mod.load_dataset = small
+d = tempfile.mkdtemp()
+tiny = ['--device', 'cpu', '--debug-scale', '--npoints', '256', '--batch-size', '2']
+assert cli.main(['train', *tiny, '--max-steps', '1', '--lr', '1e-4', '--log-dir', d]) == 0
+meta = json.load(open(os.path.join(d, 'ckpt', 'last', 'meta.json')))
+assert json.loads(meta['config'])['train']['lr'] == 1e-4, meta
+assert os.path.exists(os.path.join(d, 'metrics.csv'))
+results = os.path.join(d, 'results.json')
+assert cli.main(['eval', '--icp-only', *tiny, '--icp-iters', '2', '--results', results]) == 0
+np.save(os.path.join(d, 'a.npy'), np.random.default_rng(0).uniform(-20, 20, (300, 3)))
+assert cli.main(['infer', '--ckpt', os.path.join(d, 'ckpt', 'last'), '--device', 'cpu',
+                 '--npoints', '256', '--src', os.path.join(d, 'a.npy'),
+                 '--dst', os.path.join(d, 'a.npy'), '--out', os.path.join(d, 'pose.json')]) == 0
+assert cli.main(['pretrain-feats', *tiny, '--max-steps', '1', '--log-dir', d]) == 0
+assert cli.main(['visualize', '--results', results, '--out', os.path.join(d, 'plots')]) == 0
+bad = sorted(k for k, v in sys.modules.items() if v is not None and
+             k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'orbax', 'optax',
+                                 'pcd_reg_hregnet_tpu'))
+assert not bad, bad
+print('CLI_OK', sorted(os.listdir(os.path.join(d, 'plots'))))
+'''
+
+_NO_MATPLOTLIB = r'''
+import sys
+for name in ('matplotlib', 'jax', 'pcd_reg_hregnet_tpu'):
+    sys.modules[name] = None
+import pcd_reg_hregnet_torch.utils.visualize as v
+import pcd_reg_hregnet_torch.cli
+viz = v.VisualizeResults(sys.argv[1])
+try:
+    viz.recall_curve({'error_calib': [[0.0] * 6]})
+except ImportError:
+    print('NO_MATPLOTLIB_OK')
+'''
+
+
+def _run_fresh(script, *args, timeout=300):
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    return subprocess.run([sys.executable, '-c', script, *args], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_cli_runs_every_subcommand_without_jax():
+    proc = _run_fresh(_CLI)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    assert 'CLI_OK' in proc.stdout and 'finest_dist.png' in proc.stdout
+
+
+def test_visualize_imports_without_matplotlib(tmp_path):
+    proc = _run_fresh(_NO_MATPLOTLIB, str(tmp_path))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'NO_MATPLOTLIB_OK' in proc.stdout
 
 
 def test_cuda_sources_include_no_torch_headers():
