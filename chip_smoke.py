@@ -194,14 +194,27 @@ Phases, each printing its own line with seconds:
    the synthetic test split (no launch) with a finite summary, and
    `train --experiment reg_v11 --max-steps 2 --lr 1e-4` (exactly
    2/4/36/36 a step plus its validation's forwards) whose checkpoint meta
-   records the options.
+   records the options;
+23. seq_eval: the flagship with its PTv3 encoders sequence-sharded
+   (`seq_axis`, `parallel/sequence.py`) on a one-rank NCCL group: one B=8
+   `serve.register` under `sequence_mesh` (launches exactly 2/4/36, K3 on
+   the rank's own patches, its row count per call printed) with poses
+   within `SEQ_TOL` of the unsharded forward's, then
+   `evaluate(seq_parallel=1)` of the synthetic test split with
+   point-to-plane ICP (exactly 2/4/36 a forward) with summaries within
+   `SEQ_TOL` of the eval phase's; each says whether it was bit-identical.
+   One GPU: more ranks run only on gloo CPU ranks (`tests/`);
+24. none_eval: phase 5 for the `reg_v11` checkpoint trained with
+   `ptv3_cpe='none'` (`port_assets/r4_v11_none_best_rre.npz`) against
+   `port_assets/v11_none_r4_eval_jax_cpu.json`, limits
+   `NONE_EVAL_MAX_OUTSIDE` and `NONE_EVAL_SUMMARY_TOL`.
 
 Ends with a JSON line of per-kernel numbers, the card's name and power
 limit, the total seconds, and the result line.  In the JSON line, `ms`,
 `plain_ms`, `bound_ms` and `library_ms` add up the kernel's calls in one
 B=8 pair-forward (both towers; for K3b, the backward of one B=8 train
 step); `launches` is the sum of the counts over the main paths of phases
-4-21, each counted from 0 (K3 and K3b per dtype: the f32 rows count f32
+4-24, each counted from 0 (K3 and K3b per dtype: the f32 rows count f32
 launches only).  Exits non-zero, with no
 result line, when there is no CUDA device or any phase fails.
 """
@@ -414,6 +427,29 @@ SLAM_SOLVE_TOL = 1e-3    # pose entries: card vs CPU solve, sharded / Schur vs d
 SLAM_ITERS = 10
 DP_STEPS = 2             # optimizer steps of the counted data-parallel `fit`
 DP_TIMED = 6             # synced steps timed on the one-rank group
+# seq_eval: the flagship with its PTv3 encoders sequence-sharded on a
+# one-rank NCCL group against the unsharded forward and the eval phase
+SEQ_TOL = 1e-6           # poses and each summary entry
+SEQ_TIMED = 5            # forwards timed each way
+# none_eval: the reg_v11 checkpoint trained with ptv3_cpe='none' against
+# the JAX package's CPU eval of it.  The port's CPU eval
+# (tools/compare_evals.py) puts 30 / 24 / 14 / 14 pairs outside the
+# per-pair gate at layers 0-3: this checkpoint registers far worse than the
+# flagship (layer 3 rre 1.53 deg, 31% of pairs beyond the recall bounds),
+# and a pair near its failure edge moves by more than the gate on another
+# keypoint pick.  Each limit is the CPU count plus max(2, 3 binomial
+# standard deviations), as for the warm checkpoint.  The per-pair
+# differences put the standard deviation of the mean difference at
+# 0.00668 / 0.00499 / 0.00329 deg (rre), 0.00161 / 0.00159 / 0.00139 m
+# (rte) and 0 / 0.00391 / 0.00391 (recall) at layers 0 / 1 / 2; each
+# summary limit is the flagship's gate or 3 of those, the larger (layer 3
+# takes layer 2's).
+NONE_EVAL_REFERENCE = 'port_assets/v11_none_r4_eval_jax_cpu.json'
+NONE_EVAL_MAX_OUTSIDE = {'layer_0': 46, 'layer_1': 38, 'layer_2': 25, 'layer_3': 25}
+NONE_EVAL_SUMMARY_TOL = {'layer_0': (0.0201, 0.0049, EVAL_RECALL_TOL),
+                         'layer_1': (0.0150, 0.0048, 0.0118),
+                         'layer_2': (0.0099, 0.0042, 0.0118),
+                         'layer_3': (0.0099, 0.0042, 0.0118)}
 REPORT: dict = {}        # phase -> numbers the bf16 phases print beside the f32 ones
 
 
@@ -2766,6 +2802,102 @@ def dp_train_phase(torch, t0, smi: str) -> dict:
     return launches
 
 
+def seq_eval_phase(torch, t0, smi: str) -> dict:
+    """The flagship with `seq_axis` on a one-rank NCCL group
+    (`parallel/sequence.py`): under `sequence_mesh`, one B=8
+    `serve.register` (counted: exactly 2/4/36) whose poses must be within
+    `SEQ_TOL` of the unsharded model's on the same batch, the rows K3 sees
+    per call, and both forwards' medians; then `evaluate(seq_parallel=1)`
+    of the synthetic test split with point-to-plane ICP (counted) whose
+    summaries must be within `SEQ_TOL` of the eval phase's.  Says whether
+    each comparison was bit-identical."""
+    from pcd_reg_hregnet_torch import serve
+    from pcd_reg_hregnet_torch.data import load_dataset
+    from pcd_reg_hregnet_torch.eval.runner import evaluate
+    from pcd_reg_hregnet_torch.models import zoo
+    from pcd_reg_hregnet_torch.models.ptv3 import PatchAttention
+    from pcd_reg_hregnet_torch.parallel import sequence
+    from pcd_reg_hregnet_torch.utils import checkpoint
+
+    phase = 'seq_eval'
+    weights = checkpoint.FLAGSHIP
+    with open(EVAL_REFERENCE) as f:
+        meta = json.load(f)['reference']
+    cfg = checkpoint.load_config(weights)
+    per_forward = per_forward_launches(cfg.model)
+    plain = zoo.build('model_v6', device='cuda', weights=weights)
+    sharded = zoo.build('model_v6', device='cuda', weights=weights, seq_axis='seq')
+    rng = np.random.default_rng(7)
+    batch = [make_clouds(rng, N_POINTS) for _ in range(BATCH)]
+    src8 = torch.from_numpy(np.stack([s for s, _ in batch])).cuda()
+    dst8 = torch.from_numpy(np.stack([d for _, d in batch])).cuda()
+    want = serve.register(plain, src8, dst8, device='cuda')
+    rows = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: rows.append(args[0].shape[0] * args[0].shape[1]
+                                    // min(m.patch_size, args[0].shape[1])))
+        for m in sharded.modules() if isinstance(m, PatchAttention)]
+
+    def timed(model):
+        times = []
+        for _ in range(SEQ_TIMED):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            serve.register(model, src8, dst8, device='cuda')
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times))
+
+    ds = load_dataset(cfg.data, 'test', length=meta['pairs'])
+    with nccl_group():
+        group = sequence.sequence_group(1)
+        with sequence.sequence_mesh(group):
+            # --- the main path, counted: one B=8 forward ----------------------
+            reset_launches()
+            got = serve.register(sharded, src8, dst8, device='cuda')
+            torch.cuda.synchronize()
+            launches = read_launches()
+            check_launches(launches, per_forward, 1)
+            for h in hooks:
+                h.remove()
+            ms = {'sharded': timed(sharded)}
+        ms['unsharded'] = timed(plain)
+        d_pose = max(float((got[k] - want[k]).abs().max()) for k in ('rotation', 'translation'))
+        same = all(torch.equal(got[k], want[k]) for k in ('rotation', 'translation'))
+        log(phase, t0, f'register(B={BATCH}) on a one-rank NCCL group with seq_axis: launches '
+            f'{launches} (exactly {per_forward} a forward); K3 rows a call per level '
+            f'{sorted(set(rows), reverse=True)} (R = B x N / K, N / 1 rank; {len(rows)} calls); '
+            f'poses against the unsharded forward max|d| {d_pose:.2e} '
+            + ('(bit-identical)' if same else f'(limit {SEQ_TOL})')
+            + f'; median {ms["sharded"]:.1f} ms sharded, {ms["unsharded"]:.1f} ms unsharded '
+            f'({SEQ_TIMED} forwards each, host clock, indicative) on {smi}')
+        if not d_pose <= SEQ_TOL:
+            raise AssertionError(f'{phase}: poses differ from the unsharded forward by {d_pose}')
+        # --- the main path, counted: the eval ---------------------------------
+        reset_launches()
+        t = time.perf_counter()
+        out = evaluate(cfg, weights, split='test', icp=meta['icp'],
+                       icp_threshold=meta['icp_threshold'], icp_iters=meta['icp_iters'],
+                       dataset=ds, seq_parallel=1, device='cuda')
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t
+        eval_launches = read_launches()
+    forwards = -(-meta['pairs'] // cfg.data.batch_size)
+    check_launches(eval_launches, per_forward, forwards)
+    diffs = {key: max(abs(out[key][k] - REPORT['eval'][key][k]) for k in out[key])
+             for key in ('summary', 'summary_network')}
+    identical = all(out[key] == REPORT['eval'][key] for key in diffs)
+    log(phase, t0, f'evaluate(seq_parallel=1, icp={meta["icp"]}): {meta["pairs"]} pairs in '
+        f'{eval_s:.2f} s (host clock); launches {eval_launches} over {forwards} forwards; '
+        f'summary / summary_network against those of the eval phase, max|d| '
+        f'{diffs["summary"]:.2e} / {diffs["summary_network"]:.2e} '
+        + ('(identical)' if identical else f'(limit {SEQ_TOL})')
+        + f'; rre_deg {out["summary"]["rre_deg"]:.5f}, rte_m {out["summary"]["rte_m"]:.5f}')
+    if not max(diffs.values()) <= SEQ_TOL:
+        raise AssertionError(f'{phase}: summaries differ from those of the eval phase by {diffs}')
+    return {k: launches[k] + eval_launches[k] for k in launches}
+
+
 def run_cli(torch, t0, phase: str, argv: list) -> tuple:
     """`python -m pcd_reg_hregnet_torch ARGV` as `cli.main(ARGV)` in this
     process, the launch counts set to 0 just before it: (its stdout, the
@@ -2912,7 +3044,7 @@ def main() -> int:
         entries.append(check_attention_backward(torch, lib, kattn, gen, t0))
         entries.append(check_attention_backward(torch, lib, kattn, gen, t0, torch.bfloat16))
 
-    from pcd_reg_hregnet_torch.utils.checkpoint import A1, FLAGSHIP, WARM
+    from pcd_reg_hregnet_torch.utils.checkpoint import A1, FLAGSHIP, NONE, WARM
     counted = [serve_phase(torch, t0, 'serve', 'model_v6', FLAGSHIP),
                eval_phase(torch, t0, smi, 'eval', FLAGSHIP, EVAL_REFERENCE, EVAL_MAX_OUTSIDE),
                train_phase(torch, t0, smi, 'train', 'reg_v11', FLAGSHIP),
@@ -2937,7 +3069,10 @@ def main() -> int:
                man_eval_phase(torch, t0, smi),
                slam_phase(torch, t0, smi),
                dp_train_phase(torch, t0, smi),
-               cli_phase(torch, t0, smi)]
+               cli_phase(torch, t0, smi),
+               seq_eval_phase(torch, t0, smi),
+               eval_phase(torch, t0, smi, 'none_eval', NONE, NONE_EVAL_REFERENCE,
+                          NONE_EVAL_MAX_OUTSIDE, NONE_EVAL_SUMMARY_TOL)]
     for e in entries:
         e['launches'] = sum(c[e['name']] for c in counted)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',

@@ -18,8 +18,9 @@ take the model and loss config from the checkpoint (`--ckpt`: an exported
 CLI does.  `train` and `pretrain-feats` run the commands of
 `python -m pcd_reg_hregnet_torch.train` and `.train.feats`; under a
 launcher (torchrun, or COORDINATOR_ADDRESS / PROCESS_COUNT /
-PROCESS_INDEX) `train` runs data parallel.  The JAX CLI's `bench` runs the
-JAX harness and has no counterpart here.
+PROCESS_INDEX) `train` runs data parallel and `eval --seq-parallel N`
+shards the PTv3 encoders' serialized order over N ranks.  The JAX CLI's
+`bench` runs the JAX harness and has no counterpart here.
 """
 from __future__ import annotations
 
@@ -91,8 +92,9 @@ def parser() -> argparse.ArgumentParser:
                         help='classical ICP from the identity, no network')
     p_eval.add_argument('--icp-iters', type=int, default=None)
     p_eval.add_argument('--seq-parallel', type=int, default=0,
-                        help='shard the PTv3 serialized point axis over N ranks (not ported '
-                             'yet: values above 1 are refused)')
+                        help='shard the PTv3 serialized point axis over N ranks of the '
+                             'process group (torchrun or COORDINATOR_ADDRESS / PROCESS_COUNT / '
+                             'PROCESS_INDEX; the batch replicated, rank 0 writes --results)')
     p_eval.add_argument('--results', default='results/results.json')
 
     add_feats_args(sub.add_parser('pretrain-feats', help='detector/descriptor pretrain'),

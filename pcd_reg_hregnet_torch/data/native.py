@@ -1,5 +1,6 @@
 """ctypes binding of the native host point-cloud library (port of
-`pcd_reg_hregnet_tpu/data/native.py`, `filter_resample`).
+`pcd_reg_hregnet_tpu/data/native.py`: `available`, `filter_resample`,
+`load_bin`, `transform_inplace`).
 
 The port loads the committed `cc/libpcd_native.so`, as the JAX package
 does.  Where that library does not load, it compiles `cc/pointcloud.cc`
@@ -33,6 +34,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pc_filter_resample.argtypes = [
         f32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_float,
         ctypes.c_int64, ctypes.c_uint64, f32p, f32p]
+    lib.pc_load_bin.restype = ctypes.c_int64
+    lib.pc_load_bin.argtypes = [
+        ctypes.c_char_p, ctypes.c_float, ctypes.c_int64, ctypes.c_uint64, f32p, f32p]
+    lib.pc_transform.restype = None
+    lib.pc_transform.argtypes = [f32p, ctypes.c_int64, f32p]
     return lib
 
 
@@ -63,6 +69,15 @@ def library() -> ctypes.CDLL:
         return _bind(_compile())
 
 
+def available() -> bool:
+    """Whether the library loads (committed, or compiled from its source)."""
+    try:
+        library()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 def _f32p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
 
@@ -78,3 +93,35 @@ def filter_resample(points: np.ndarray, max_range: float, n_out: int,
     lib.pc_filter_resample(_f32p(points), points.shape[0], points.shape[1],
                            max_range, n_out, seed, _f32p(out_xyz), _f32p(out_int))
     return out_xyz, out_int
+
+
+def load_bin(path: str, max_range: float, n_out: int,
+             seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """One-pass .pcd.bin decode + filter + resample (float32 records of 4
+    or 5 values, xyz first).  Returns (xyz [n_out, 3], inten [n_out]);
+    raises OSError for a file it cannot read, ValueError for another
+    record width."""
+    lib = library()
+    out_xyz = np.empty((n_out, 3), np.float32)
+    out_int = np.empty((n_out,), np.float32)
+    ret = lib.pc_load_bin(os.fsencode(path), max_range, n_out, seed,
+                          _f32p(out_xyz), _f32p(out_int))
+    if ret == -1:
+        raise OSError(f'cannot read {path}')
+    if ret == -2:
+        raise ValueError(f'unrecognised point record width in {path}')
+    return out_xyz, out_int
+
+
+def transform_inplace(points: np.ndarray, T: np.ndarray) -> np.ndarray:
+    """Apply a rigid [4, 4] transform in place to [N, 3] float32 points
+    (C-contiguous); returns `points`."""
+    if points.dtype != np.float32 or not points.flags['C_CONTIGUOUS'] or \
+            points.ndim != 2 or points.shape[1] != 3:
+        raise ValueError(f'points must be C-contiguous float32 [N, 3], not {points.dtype} '
+                         f'{points.shape}')
+    T = np.ascontiguousarray(T, np.float32)
+    if T.shape != (4, 4):
+        raise ValueError(f'T must be [4, 4], not {T.shape}')
+    library().pc_transform(_f32p(points), points.shape[0], _f32p(T))
+    return points

@@ -1,13 +1,17 @@
 """Split evaluation: network + multi-layer metrics + ICP (port of
 `pcd_reg_hregnet_tpu/eval/runner.py::evaluate`, `evaluate_icp_only`).
 
-One device: batches of `cfg.data.batch_size` pairs go through the model on
-the card (or on the CPU when the caller passes ``device='cpu'``), with the
-ragged last batch kept as it is.  The results dict and its JSON file have
-the JAX package's keys and metadata.
+Batches of `cfg.data.batch_size` pairs go through the model on the card
+(or on the CPU when the caller passes ``device='cpu'``), with the ragged
+last batch kept as it is.  The results dict and its JSON file have the JAX
+package's keys and metadata.  `evaluate(seq_parallel=N)` shards the PTv3
+encoders' serialized order over N ranks of the process group
+(`parallel/sequence.py`), the batch replicated.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import os
 from pathlib import Path
 from typing import Dict, Optional
@@ -19,6 +23,7 @@ from ..core.device import resolve_device
 from ..data import batch_iterator, load_dataset
 from ..geometry import se3
 from ..models import zoo
+from ..parallel import distributed, sequence
 from .calib_eval import CalibEval, MultiLayerCalibEval
 from .icp import refine
 
@@ -32,7 +37,7 @@ def load_model(cfg: Config, weights: str | Path,
     f32-trained checkpoint serves in bf16 so, as the JAX CLI's `eval
     --compute-dtype` runs it); it must record `cfg.model` otherwise."""
     model = zoo.build(cfg.model.name, device=device, weights=Path(weights),
-                      compute_dtype=cfg.model.compute_dtype)
+                      compute_dtype=cfg.model.compute_dtype, seq_axis=cfg.model.seq_axis)
     if model.cfg != cfg.model:
         raise ValueError(f'{weights} records another model configuration than '
                          f'cfg.model:\n{model.cfg}\n{cfg.model}')
@@ -53,12 +58,37 @@ def evaluate(cfg: Config, weights: str | Path, *, split: str = 'test',
     {None, 'point_to_point', 'point_to_plane'} appends the refined pose as
     a fourth layer.  A pair succeeds for the recall when its mean
     |per-axis| errors are below `recall_rot_deg` and `recall_trans_m`.
+
+    `seq_parallel` = N >= 1 runs the PTv3 encoders sequence-sharded over
+    N ranks of the process group (`parallel.sequence.sequence_group`; the
+    group joined from a launcher's environment if none is yet): every rank
+    computes the whole batch's results, rank 0 alone writes
+    `results_path`.  N = 1 runs the sharded path on a one-rank group (the
+    JAX package takes only N > 1 to its sharded path; the results are the
+    same).  Raises ValueError for a backbone other than ptv3, a patch that
+    would straddle two shares, or more shards than ranks; RuntimeError
+    without a process group.
     """
-    if seq_parallel and seq_parallel > 1:
-        raise NotImplementedError('seq_parallel > 1: sequence parallelism is not ported '
-                                  'yet (ROADMAP queue 1 item 13)')
     if icp not in ICP_METHODS:
         raise ValueError(f'unknown ICP method {icp!r}; one of {ICP_METHODS}')
+    seq_ctx = contextlib.nullcontext()
+    if seq_parallel:
+        if cfg.model.backbone != 'ptv3':
+            raise ValueError('--seq-parallel requires the ptv3 backbone '
+                             f'(model is {cfg.model.backbone!r})')
+        for i, lvl in enumerate(cfg.model.levels):
+            sequence.check_patch_alignment(lvl.nsample, cfg.model.ptv3_patch_sizes[i],
+                                           seq_parallel)
+        distributed.initialize(device=resolve_device(device))
+        seq_ctx = sequence.sequence_mesh(sequence.sequence_group(seq_parallel))
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, seq_axis='seq'))
+    with seq_ctx:
+        return _evaluate(cfg, weights, split, icp, icp_threshold, icp_iters, results_path,
+                         dataset, recall_rot_deg, recall_trans_m, device)
+
+
+def _evaluate(cfg, weights, split, icp, icp_threshold, icp_iters, results_path, dataset,
+              recall_rot_deg, recall_trans_m, device) -> Dict:
     model = load_model(cfg, weights, device)
     dev = next(model.parameters()).device
     ds = dataset if dataset is not None else load_dataset(cfg.data, split)
@@ -86,7 +116,7 @@ def evaluate(cfg: Config, weights: str | Path, *, split: str = 'test',
     }
     metadata['summary'] = evaluator.evaluators[num_layers - 1].summary()
     metadata['summary_network'] = evaluator.evaluators[2].summary()
-    if results_path:
+    if results_path and distributed.rank() == 0:
         os.makedirs(os.path.dirname(results_path) or '.', exist_ok=True)
         return evaluator.save_all_results(results_path, metadata)
     combined = {f'layer_{i}': e.get_results() for i, e in evaluator.evaluators.items()}

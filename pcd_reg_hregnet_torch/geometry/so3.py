@@ -83,6 +83,13 @@ def log(R: torch.Tensor) -> torch.Tensor:
     return vee(skew) / sinc1(theta)[..., None]
 
 
+def transform(R: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Apply rotation(s) to points: [..., 3, 3] x [..., N, 3] -> [..., N, 3],
+    an elementwise product and sum in the inputs' dtype (never TF32, as the
+    JAX package's `precision='highest'`)."""
+    return torch.sum(R[..., None, :, :] * points[..., :, None, :], dim=-1)
+
+
 def inverse(R: torch.Tensor) -> torch.Tensor:
     return R.transpose(-1, -2)
 

@@ -29,6 +29,7 @@ from ..core.device import fp32_numerics
 from ..ops import serialization
 from ..ops.kernels.attention import PatchAttentionFunction
 from ..ops.neighbors import knn, knn_gather
+from ..parallel import sequence
 from .layers import BatchNorm, Dense, low_precision, result_dtype
 
 
@@ -77,7 +78,10 @@ class LayerNorm(nn.LayerNorm):
 
 class SerializedDepthwiseConv(nn.Module):
     """Depthwise conv along the serialized order, 'SAME' padding, in
-    `dtype` (flax `nn.Conv(dtype=)`), its output in the input's dtype."""
+    `dtype` (flax `nn.Conv(dtype=)`), its output in the input's dtype.
+    With a `group`, x is this rank's share of a sequence-sharded order and
+    the padding comes from the neighbouring shares
+    (`parallel.sequence.sharded_depthwise_conv`)."""
 
     def __init__(self, channels: int, kernel: int = 3, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -85,9 +89,12 @@ class SerializedDepthwiseConv(nn.Module):
                                 padding=kernel // 2)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:    # [B, N, C]
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:    # [B, N, C]
         conv = self.Conv_0
         dt = result_dtype(self.compute_dtype, x, conv.weight)
+        if group is not None:
+            return sequence.sharded_depthwise_conv(x.to(dt), conv.weight.to(dt),
+                                                   conv.bias.to(dt), group).to(x.dtype)
         y = F.conv1d(x.transpose(1, 2).to(dt), conv.weight.to(dt), conv.bias.to(dt),
                      padding=conv.padding, groups=conv.groups)
         return y.transpose(1, 2).to(x.dtype)
@@ -155,7 +162,10 @@ class PTv3Mlp(nn.Module):
 
 
 class PTv3Block(nn.Module):
-    """CPE + pre-norm patch attention + pre-norm MLP."""
+    """CPE + pre-norm patch attention + pre-norm MLP.  With a `group`, x
+    (and `nbr_idx`, `rel`) are this rank's rows of a sequence-sharded order
+    (`parallel.sequence`): the kNN CPE gathers every rank's rows once, the
+    curve CPE exchanges a halo, the rest acts on the rank's rows alone."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
                  mlp_ratio: float = 4.0, cpe: str = 'curve',
@@ -178,11 +188,12 @@ class PTv3Block(nn.Module):
         self.PatchAttention_0 = PatchAttention(channels, num_heads, patch_size, dtype=dtype)
         self.PTv3Mlp_0 = PTv3Mlp(channels, mlp_ratio, dtype)
 
-    def forward(self, x, nbr_idx=None, rel=None):
+    def forward(self, x, nbr_idx=None, rel=None, group=None):
         if self.cpe == 'knn':
-            cpe = self.KnnCPE_0(x, nbr_idx, rel)
+            whole = x if group is None else sequence.gather_rows(x, group)
+            cpe = self.KnnCPE_0(whole, nbr_idx, rel)
         elif self.cpe == 'curve':
-            cpe = self.SerializedDepthwiseConv_0(x)
+            cpe = self.SerializedDepthwiseConv_0(x, group)
         else:
             cpe = None
         if cpe is not None:
@@ -198,16 +209,24 @@ class PointTransformerEncoder(nn.Module):
     Input xyz [B, N, 3] and feat [B, N, in_channels]; output
     [B, N, channels] in the input's point order (f32 in train mode, `dtype`
     in eval mode: the stem's BatchNorm is f32 in training).
+
+    With `seq_axis` set, inside `parallel.sequence.sequence_mesh(group)`
+    the serialized order is sharded over the group's ranks after the stem's
+    depthwise conv (the module docstring of `parallel/sequence.py` gives
+    the steps); each rank's share must hold whole patches, and the output
+    is gathered, the same on every rank.  Eval mode only.  Without an
+    active group `seq_axis` changes nothing, as in the JAX module.
     """
 
     def __init__(self, in_channels: int, channels: int,
                  depths: Sequence[int] = (2, 2, 2),
                  num_heads: Sequence[int] = (2, 4, 8), patch_size: int = 256,
                  mlp_ratio: float = 4.0, grid_size: float = 0.01,
-                 cpe: str = 'curve', dtype: Optional[torch.dtype] = None):
+                 cpe: str = 'curve', dtype: Optional[torch.dtype] = None,
+                 seq_axis: Optional[str] = None):
         super().__init__()
         self.depths, self.patch_size = tuple(depths), patch_size
-        self.grid_size, self.cpe = grid_size, cpe
+        self.grid_size, self.cpe, self.seq_axis = grid_size, cpe, seq_axis
         self.SerializedDepthwiseConv_0 = SerializedDepthwiseConv(in_channels, 5, dtype)
         self.Dense_0 = Dense(in_channels, channels, dtype=dtype)
         self.BatchNorm_0 = BatchNorm(channels, eps=1e-2, momentum=0.01, dtype=dtype)
@@ -227,13 +246,22 @@ class PointTransformerEncoder(nn.Module):
             raise ValueError(
                 f'PointTransformerEncoder patch_size={self.patch_size} must '
                 f'divide the point count {N}')
+        group = sequence.active_sequence_mesh() if self.seq_axis is not None else None
+        if group is not None and self.training:
+            raise ValueError('sequence parallelism (seq_axis under sequence_mesh) is eval only')
         order, inverse = serialization.serialize(xyz, self.grid_size)
         x = _take_rows(feat, order)
         nbr_idx = rel = None
         if self.cpe == 'knn':
             nbr_idx, rel = cpe_neighbors(_take_rows(xyz, order))
 
+        # the stem's conv reads the whole replicated order: no halo
         x = self.SerializedDepthwiseConv_0(x)
+        if group is not None:
+            share = sequence.sequence_sharding(N, group, min(self.patch_size, N))
+            x = x[:, share]
+            if nbr_idx is not None:
+                nbr_idx, rel = nbr_idx[:, share], rel[:, share]
         x = _gelu(self.BatchNorm_0(self.Dense_0(x, upcast=True)))
         n = 0
         for s, depth in enumerate(self.depths):
@@ -241,8 +269,10 @@ class PointTransformerEncoder(nn.Module):
                 x = getattr(self, f'Dense_{s}')(x, upcast=True)
                 x = _gelu(getattr(self, f'BatchNorm_{s}')(x))
             for _ in range(depth):
-                x = getattr(self, f'PTv3Block_{n}')(x, nbr_idx, rel)
+                x = getattr(self, f'PTv3Block_{n}')(x, nbr_idx, rel, group)
                 n += 1
+        if group is not None:
+            x = sequence.gather_rows(x, group)
         return _take_rows(x, inverse)
 
 

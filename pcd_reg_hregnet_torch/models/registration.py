@@ -28,16 +28,15 @@ class HierFeatureExtraction(nn.Module):
     backbone, as in the JAX module, from a `DescExtractor` over the
     detector's grouped neighbourhoods.  `cfg.compute_dtype` sets every
     submodule's compute dtype (`layers.compute_dtype`); xyz, sigmas and the
-    WFPS weights stay f32.  Raises `NotImplementedError` for `seq_axis`,
-    not ported yet, and for a compute dtype other than float32 or
+    WFPS weights stay f32.  `cfg.seq_axis` goes to the PTv3 encoders,
+    which shard their serialized order under
+    `parallel.sequence.sequence_mesh` (eval only).  Raises
+    `NotImplementedError` for a compute dtype other than float32 or
     bfloat16."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         dtype = compute_dtype(cfg.compute_dtype)
-        if cfg.seq_axis is not None:
-            raise NotImplementedError(
-                f'seq_axis {cfg.seq_axis!r}: sequence parallelism is not ported yet')
         self.cfg = cfg
         in_ch = 0
         for i, lvl in enumerate(cfg.levels):
@@ -47,7 +46,8 @@ class HierFeatureExtraction(nn.Module):
                 self.add_module(f'ptv3_{i + 1}', PointTransformerEncoder(
                     lvl.conv_channels[-1], lvl.desc_dim, cfg.ptv3_depths,
                     cfg.ptv3_num_heads, cfg.ptv3_patch_sizes[i],
-                    cfg.ptv3_mlp_ratio, cfg.ptv3_grid_size, cfg.ptv3_cpe, dtype))
+                    cfg.ptv3_mlp_ratio, cfg.ptv3_grid_size, cfg.ptv3_cpe, dtype,
+                    cfg.seq_axis))
             else:
                 self.add_module(f'desc_extractor_{i + 1}', DescExtractor(
                     in_ch + 4, lvl.conv_channels[-1], lvl.conv_channels, lvl.desc_dim,

@@ -13,9 +13,10 @@
 (`models/ptv3.py`), which no preset uses.
 
 Every preset builds in `compute_dtype` float32 or bfloat16 (the JAX
-package's bf16 policy, `models/layers.py`).  Not ported yet, so refused
-with `NotImplementedError`: `seq_axis` (`RegistrationModel`), and any
-other compute dtype.
+package's bf16 policy, `models/layers.py`); any other compute dtype is
+refused with `NotImplementedError`.  `seq_axis` shards the PTv3 encoders'
+serialized order at eval (`parallel/sequence.py`).  `available()` lists
+the presets.
 """
 from __future__ import annotations
 
@@ -49,6 +50,11 @@ def model_config(name: str, **overrides) -> ModelConfig:
         raise KeyError(f'unknown model {name!r}; available: {sorted(_PRESETS)}')
     cfg = _PRESETS[name]
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def available() -> list[str]:
+    """The preset names, sorted."""
+    return sorted(_PRESETS)
 
 
 # std of a standard normal truncated to [-2, 2] (flax's variance_scaling

@@ -1,1 +1,1 @@
-"""Data parallelism on `torch.distributed` (port of `pcd_reg_hregnet_tpu/parallel/`)."""
+"""Data and sequence parallelism on `torch.distributed` (port of `pcd_reg_hregnet_tpu/parallel/`)."""

@@ -7,8 +7,8 @@ port, in f32 or in bf16 (`--compute-dtype`): every model preset (conv,
 PTv3 and attention backbones, SVD and regression heads, MI from the
 coarse or the second level) and the transformation, chamfer, MI and
 circle losses.  Still refused (`NotImplementedError`, where the model is
-built): `seq_axis`, which no entry sets, and a compute dtype other than
-float32 and bfloat16.
+built): a compute dtype other than float32 and bfloat16.  `seq_axis`,
+which no entry sets, is the eval's (`eval.runner.evaluate(seq_parallel=)`).
 """
 from __future__ import annotations
 

@@ -37,6 +37,7 @@ FLAGSHIP = ASSETS_DIR / 'r5_v11_knn_best_rre.npz'   # reg_v11, model_v6
 A1 = ASSETS_DIR / 'r4_v6_50_best_rre.npz'           # reg_v6, model_v2
 WARM = ASSETS_DIR / 'r4_v11_warm_best_rre.npz'      # reg_v11 warm-started from FEATS
 FEATS = ASSETS_DIR / 'r5_feats_desc_feats_descriptor.npz'   # descriptor stage, model_v6
+NONE = ASSETS_DIR / 'r4_v11_none_best_rre.npz'      # reg_v11 with ptv3_cpe='none'
 OBJECTIVE = 'objective'
 TRAIN_STATE = 'state.pt'
 

@@ -193,7 +193,7 @@ class TestPTv3:
 
 
 class TestUnportedConfig:
-    @pytest.mark.parametrize('override', [{'seq_axis': 'seq'}])
+    @pytest.mark.parametrize('override', [{'compute_dtype': 'float16'}])
     def test_build_refuses_values_the_port_does_not_implement(self, override):
         from pcd_reg_hregnet_torch.models import zoo
         with pytest.raises(NotImplementedError, match=next(iter(override))):
